@@ -1,0 +1,64 @@
+"""Optimizers, ``adam`` only (``mmdgan_tpu/train/optim.py:61-62,132-151``).
+
+``Adam`` applies optax's ``adam(lr, b1, b2, eps)`` update rule,
+
+    mu  = b1 mu + (1 - b1) g          nu = b2 nu + (1 - b2) g^2
+    p  -= lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+
+in place on a list of tensors with PyTorch's multi-tensor ``_foreach``
+ops. The slots are dicts keyed like the parameters, so the JAX bridge can
+fill them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence
+
+import torch
+
+from mmdgan_torch.train.state import tree_leaves, tree_map
+
+
+@dataclasses.dataclass
+class AdamState:
+    count: int
+    mu: Dict
+    nu: Dict
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    lr: float
+    b1: float = 0.5
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params: Dict) -> AdamState:
+        zeros = lambda p: torch.zeros_like(p, requires_grad=False)
+        return AdamState(count=0, mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+
+    @torch.no_grad()
+    def update_(self, params: List[torch.Tensor], grads: Sequence[torch.Tensor],
+                state: AdamState) -> None:
+        """One update of ``params`` (in the order of ``tree_leaves``) and
+        ``state``, in place."""
+        mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
+        grads = list(grads)
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        state.count += 1
+        mu_hat = torch._foreach_div(mu, 1.0 - self.b1 ** state.count)
+        denom = torch._foreach_div(nu, 1.0 - self.b2 ** state.count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_addcdiv_(params, mu_hat, denom, value=-self.lr)
+
+
+def multi_opt_config(lr_list: Sequence[float], optimizer: str = "adam") -> List[Adam]:
+    """One optimizer per net (TTUR): index 0 discriminator, 1 generator."""
+    if optimizer not in ("adam", "Adam"):
+        raise NotImplementedError(f"optimizer {optimizer} is not ported yet")
+    return [Adam(lr) for lr in lr_list]
