@@ -10,15 +10,20 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: compile every CUDA kernel of the main path from ``mmdgan_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card
-   (values rtol 1e-5 / atol 1e-6, gradients rtol 1e-4), then timed beside
-   the plain version;
+3. kernels: each kernel against its plain PyTorch version on the card,
+   then timed beside it: the forward's means (rtol 1e-5 / atol 1e-6) and
+   the backward's gradients (rtol 1e-4, atol 1e-8 plus the mask-rounding
+   term of ``kernel_means_backward_atol``) at (64, 16), (23, 5) and
+   (256, 16) and on a saturated input whose raw gen-gen distances go
+   below 0, two launches of each bitwise equal, and the autograd path of
+   ``fused_kernel_means`` against autograd of the plain means;
 4. reference: a narrow float32 model, three steps on the card (kernel path)
    against the same three steps on the CPU (plain path), TF32 off;
 5. main path: the full-width CIFAR-10 SNGAN at batch 64, bf16, for the
    'rep' and 'rmb' losses, through ``build_multi_step``; finite metrics,
-   parameters, SN vectors and BN statistics changed, one kernel launch per
-   step; steps/s, and a profiler window of the 'rep' path;
+   parameters, SN vectors and BN statistics changed, one forward and two
+   backward kernel launches per step (the step's two ``autograd.grad``
+   calls); steps/s, and a profiler window of the 'rep' path;
 6. determinism: the 'rmb' main path twice more with deterministic
    algorithms, whose end states must be bitwise equal.
 
@@ -82,6 +87,38 @@ def scores(b: int, d: int, seed: int, device) -> tuple:
     return tuple(out)
 
 
+def saturated_scores(b: int, d: int, seed: int, device) -> tuple:
+    """The saturated regime (e_kxx near 1): gen rows that are one row plus
+    noise at 1e-4 of its scale, whose raw distances sit at 0 up to rounding
+    and many come out negative; data rows as in ``scores``."""
+    rng = np.random.RandomState(seed)
+    base = rng.randn(1, d) * 0.25
+    sg = (base + 2.5e-5 * rng.randn(b, d)).astype(np.float32)
+    sx = (rng.randn(b, d) * rng.uniform(0.05, 0.5, (b, 1))).astype(np.float32)
+    return torch.tensor(sg, device=device), torch.tensor(sx, device=device)
+
+
+def cotangents(device) -> dict:
+    """d(loss)/d(means) of the step's losses (repulsive weights (0, -1)) and
+    a random one."""
+    return {name: torch.tensor(np.asarray(ct, np.float32), device=device) for name, ct in (
+        ("random", np.random.RandomState(3).randn(6)),
+        ("loss_gen", [1, -2, 1, 0, 0, 0]),
+        ("rep_loss_dis", [-1, 0, 1, 0, 0, 0]),
+        ("rmb_loss_dis", [0, 0, 0, -1, 0, 1]))}
+
+
+def assert_grads_close(got, want, atols, what: str) -> float:
+    """rtol 1e-4 / atol 1e-8, plus the mask-rounding term of
+    ``kernel_means_backward_atol``; returns the largest |got - want|."""
+    err = 0.0
+    for name, g, w, extra in zip(("g_gen", "g_x"), got, want, atols):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=GRAD_TOL["rtol"],
+                                   atol=GRAD_TOL["atol"] + extra, err_msg=f"{what}: {name}")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
 def cuda_ms(fn, calls: int, warmup: int = 20) -> float:
     """Milliseconds per call between CUDA events around ``calls`` calls."""
     for _ in range(warmup):
@@ -131,6 +168,26 @@ def kernel_means_bound_ms(b: int, d: int) -> tuple:
     return times[by] * 1e3, ("bytes" if by == "bytes" else "operations"), by
 
 
+def kernel_means_backward_bound_ms(b: int, d: int) -> tuple:
+    """(bound in ms, 'bytes' or 'operations', the pipe that bounds it) for
+    the gradient of the six means. Bytes: both inputs and the [6] cotangent
+    read once, both [B, d] gradients written once. Entries as in
+    ``kernel_means_bound_ms``, each computed once (the kernel's row owners
+    compute a symmetric entry twice; the function needs it once): 2d flops
+    of Gram product, 3 of distance, one exponential, 3 to form the
+    coefficient (select the bounded part, scale, multiply by k), and 2 * 2d
+    to accumulate it into both endpoint rows; 2 flops per score element
+    for the squared norms."""
+    half = b * (b - 1) // 2
+    entries = 2 * half + b * b
+    flops = entries * (6 * d + 6) + 2 * 2 * b * d
+    times = {"bytes": ((2 * b * d + 6) * 4 + 2 * b * d * 4) / PEAK_BYTES_PER_S,
+             "fp32": flops / PEAK_FP32_PER_S,
+             "special-function": entries / PEAK_SFU_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, ("bytes" if by == "bytes" else "operations"), by
+
+
 def check_kernel_means(dev) -> dict:
     """Phase 3: the CUDA kernel against its plain version, then timed."""
     max_err = 0.0
@@ -145,15 +202,8 @@ def check_kernel_means(dev) -> dict:
         assert torch.equal(got, again), f"kernel means not deterministic at {(b, d)}"
         max_err = max(max_err, float((got - want).abs().max()))
 
-        ct = torch.tensor(np.random.RandomState(10 + i).randn(6).astype(np.float32), device=dev)
-        a, c = sg.clone().requires_grad_(True), sx.clone().requires_grad_(True)
-        g_fused = torch.autograd.grad(cuda_mmd.fused_kernel_means(a, c, 1.0), (a, c), ct)
-        g_plain = torch.autograd.grad(cuda_mmd.kernel_means_reference(a, c, 1.0), (a, c), ct)
-        for gf, gp in zip(g_fused, g_plain):
-            np.testing.assert_allclose(gf.cpu().numpy(), gp.cpu().numpy(), **GRAD_TOL,
-                                       err_msg=f"kernel means gradient at {(b, d)}")
         log(f"[kernels] kernel_means {(b, d)}: max |kernel - plain| = "
-            f"{float((got - want).abs().max()):.3e}, gradients agree, deterministic")
+            f"{float((got - want).abs().max()):.3e}, deterministic")
 
     b, d = BATCH, 16
     sg, sx = scores(b, d, seed=0, device=dev)
@@ -170,6 +220,65 @@ def check_kernel_means(dev) -> dict:
     return {"name": "kernel_means", "route": "cuda",
             "source": "mmdgan_torch/csrc/kernel_means.cu",
             "replaces": "mmdgan_tpu/ops/pallas_mmd.py:50",
+            "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "device_ms": device_ms, "plain_device_ms": plain_device_ms}
+
+
+def check_kernel_means_backward(dev) -> dict:
+    """Phase 3: the backward kernel against its plain version (the closed
+    form) on ordinary scores at the three shapes and on one saturated input
+    at the main path's shape, for each cotangent; two launches bitwise
+    equal; the autograd path of ``fused_kernel_means`` (both kernels)
+    against autograd of the plain means; then timed."""
+    max_err = 0.0
+    inputs = [(f"{(b, d)}", scores(b, d, seed=i, device=dev))
+              for i, (b, d) in enumerate(KERNEL_SHAPES)]
+    inputs.append((f"saturated {(BATCH, 16)}", saturated_scores(BATCH, 16, seed=5, device=dev)))
+    cts = cotangents(dev)
+    for what, (sg, sx) in inputs:
+        for name, ct in cts.items():
+            got = cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0)
+            again = cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0)
+            want = cuda_mmd.kernel_means_backward_reference(sg, sx, ct, 1.0)
+            torch.cuda.synchronize()
+            atols = cuda_mmd.kernel_means_backward_atol(sg, sx, ct, 1.0)
+            err = assert_grads_close(got, want, atols, f"backward {what} ct={name}")
+            max_err = max(max_err, err)
+            assert all(torch.equal(g, h) for g, h in zip(got, again)), (
+                f"backward kernel not deterministic at {what} ct={name}")
+
+        ct = cts["random"]
+        a, c = sg.clone().requires_grad_(True), sx.clone().requires_grad_(True)
+        g_fused = torch.autograd.grad(cuda_mmd.fused_kernel_means(a, c, 1.0), (a, c), ct)
+        g_plain = torch.autograd.grad(cuda_mmd.kernel_means_reference(a, c, 1.0), (a, c), ct)
+        atols = cuda_mmd.kernel_means_backward_atol(sg, sx, ct)
+        assert_grads_close(g_fused, g_plain, atols, f"fused_kernel_means autograd at {what}")
+        negative = int((cuda_mmd.raw_distances(sg, sx)[0] < 0).sum())
+        log(f"[kernels] kernel_means_backward {what}: {len(cts)} cotangents agree with the "
+            f"closed form, deterministic; fused autograd agrees with autograd of the plain "
+            f"means (mask-rounding atol {atols[0]:.2e} / {atols[1]:.2e} for the random "
+            f"cotangent); {negative} raw gen-gen distances below 0")
+
+    b, d = BATCH, 16
+    sg, sx = scores(b, d, seed=0, device=dev)
+    ct = cts["loss_gen"]
+    a, c = sg.clone().requires_grad_(True), sx.clone().requires_grad_(True)
+    ms = cuda_ms(lambda: cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0), 2000)
+    plain_ms = cuda_ms(lambda: cuda_mmd.kernel_means_backward_reference(sg, sx, ct, 1.0), 2000)
+    autograd_ms = cuda_ms(lambda: torch.autograd.grad(
+        cuda_mmd.kernel_means_reference(a, c, 1.0), (a, c), ct), 500)
+    device_ms = graph_ms(lambda: cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0))
+    plain_device_ms = graph_ms(lambda: cuda_mmd.kernel_means_backward_reference(sg, sx, ct, 1.0))
+    bound, bound_by, pipe = kernel_means_backward_bound_ms(b, d)
+    log(f"[kernels] kernel_means_backward at ({b}, {d}): {ms:.5f} ms/call "
+        f"({device_ms:.5f} ms on the device from a CUDA graph), plain closed form "
+        f"{plain_ms:.5f} ms/call ({plain_device_ms:.5f} ms from a graph), autograd of the plain "
+        f"means {autograd_ms:.5f} ms/call, bound {bound:.3e} ms ({pipe}); no single PyTorch "
+        "call computes this gradient, so no library yardstick")
+    return {"name": "kernel_means_backward", "route": "cuda",
+            "source": "mmdgan_torch/csrc/kernel_means.cu",
+            "replaces": "mmdgan_tpu/ops/pallas_mmd.py:166",
             "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             "device_ms": device_ms, "plain_device_ms": plain_device_ms}
@@ -240,14 +349,15 @@ def main_path_setup(dev, loss_type: str) -> tuple:
 
 
 def run_main_path(dev, loss_type: str, card: str, profile: bool) -> tuple:
-    """Phase 5 for one loss; returns the kernel launches of the run and
-    the last step's e_kxx."""
+    """Phase 5 for one loss; returns the forward and backward kernel
+    launches of the run and the last step's e_kxx."""
     model, ts, multi, batches = main_path_setup(dev, loss_type)
     params0 = [p.detach().clone() for p in tree_leaves(ts.params)]
     state0 = [v.clone() for v in tree_leaves(ts.net_state)]
     torch.cuda.reset_peak_memory_stats(dev)
 
-    cuda_mmd.kernel_means_cuda.launches = 0
+    forward, backward = cuda_mmd.kernel_means_cuda, cuda_mmd.kernel_means_backward_cuda
+    forward.launches = backward.launches = 0
     for _ in range(WARMUP_CALLS):
         ts, m = multi(ts, batches)
     torch.cuda.synchronize()
@@ -256,9 +366,10 @@ def run_main_path(dev, loss_type: str, card: str, profile: bool) -> tuple:
         ts, m = multi(ts, batches)
     torch.cuda.synchronize()
     dur = time.perf_counter() - start
-    launches = cuda_mmd.kernel_means_cuda.launches
+    launches = (forward.launches, backward.launches)
     steps = (WARMUP_CALLS + MEASURE_CALLS) * SCAN_K
-    assert launches == steps, f"{loss_type}: {launches} kernel launches for {steps} steps"
+    assert launches == (steps, 2 * steps), (
+        f"{loss_type}: {launches} forward and backward kernel launches for {steps} steps")
 
     for k, v in m.items():
         assert torch.isfinite(v).all(), f"{loss_type}: non-finite {k}"
@@ -275,7 +386,8 @@ def run_main_path(dev, loss_type: str, card: str, profile: bool) -> tuple:
         f"({MEASURE_CALLS * SCAN_K} steps after {WARMUP_CALLS * SCAN_K} warm-up), "
         f"loss_gen={float(m['loss_gen'][-1]):.5f} e_kxx={e_kxx:.5f}, "
         f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB, "
-        f"kernel launches {launches} for {steps} steps; card: {card}")
+        f"kernel launches {launches[0]} forward and {launches[1]} backward for {steps} steps; "
+        f"card: {card}")
     if profile:
         _profile(multi, ts, batches, 1e3 / steps_per_s)
     return launches, e_kxx
@@ -319,8 +431,9 @@ def check_determinism(dev, default_e_kxx: float) -> None:
 def _profile(multi, ts, batches, step_ms: float) -> None:
     """One call (SCAN_K steps) under torch.profiler: device busy time per
     step, its share of the untraced step time ``step_ms`` (the traced wall
-    time includes the profiler's own cost), and the kernels taking most
-    time."""
+    time includes the profiler's own cost), the kernel-means kernels'
+    device time and launches per step (one forward, two backward), and the
+    kernels taking most time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -339,6 +452,12 @@ def _profile(multi, ts, batches, step_ms: float) -> None:
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for kernel, per_step in (("kernel_means_fwd", 1), ("kernel_means_bwd", 2)):
+        mine = [e for e in kernels if kernel in e.name]
+        ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / SCAN_K
+        log(f"[profile]   kernel means: {kernel} {ms:.5f} ms/step on the device, "
+            f"{len(mine) / SCAN_K:g} launches/step")
+        assert len(mine) == per_step * SCAN_K, f"{kernel}: {len(mine)} launches in {SCAN_K} steps"
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   {t / SCAN_K:8.4f} ms/step  {name[:100]}")
 
@@ -367,14 +486,15 @@ def main() -> int:
     log(f"[build] {cuda_mmd.SOURCE}: {time.perf_counter() - start:.2f} s "
         f"({'loaded from build/' if existed else 'nvcc sm_90a'})")
 
-    kernel = check_kernel_means(dev)
+    kernels = [check_kernel_means(dev), check_kernel_means_backward(dev)]
     check_against_cpu(dev)
     runs = {loss: run_main_path(dev, loss, card, profile=(loss == "rep"))
             for loss in ("rep", "rmb")}
-    kernel["launches"] = sum(launches for launches, _ in runs.values())
+    for i, kernel in enumerate(kernels):
+        kernel["launches"] = sum(launches[i] for launches, _ in runs.values())
     check_determinism(dev, runs["rmb"][1])
 
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,16 @@ interpret mode), so they agree to a few ulps of the sums, not bitwise.
 The kernel means are O(0.1) here and held at rtol 1e-5; the losses are
 differences of them (e_kxx + e_kyy - 2 e_kxy ~ 4e-3), so their rounding
 error is that of the means, which the atol 1e-6 covers.
+
+The backward's closed form (``kernel_means_backward_reference``, the
+function the backward kernel computes) is held against ``jax.vjp`` of
+JAX's ``fused_kernel_means`` at the gradient tolerance plus
+``kernel_means_backward_atol``: the gradient jumps where a raw distance
+crosses 0 (the clamp) or a bound, and two codes that round a raw distance
+differently may keep or drop such a pair. On ordinary scores no pair lies
+within rounding of a threshold and that term is 0; on the saturated input
+(near-duplicate gen rows, whose raw gen-gen distances sit at 0 up to
+rounding) it bounds the sum of those pairs' terms.
 """
 
 import jax
@@ -20,10 +30,15 @@ from mmdgan_tpu.ops import distance as jdist
 from mmdgan_tpu.ops import kernels as jker
 from mmdgan_tpu.ops.losses import gan_loss as jax_gan_loss
 from mmdgan_tpu.ops.pallas_mmd import fused_kernel_means as jax_fused_kernel_means
+from mmdgan_torch.ops import cuda_mmd
 from mmdgan_torch.ops.cuda_mmd import (
     fused_kernel_means,
+    kernel_means_backward_atol,
+    kernel_means_backward_cuda,
+    kernel_means_backward_reference,
     kernel_means_cuda,
     kernel_means_reference,
+    raw_distances,
     repulsive_mmd_g_bounded_fused,
 )
 from mmdgan_torch.ops.distance import get_squared_dist
@@ -35,6 +50,15 @@ torch.set_num_threads(1)
 SHAPES = [(64, 16), (23, 5), (256, 16)]
 VAL = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-8)
+# d(loss)/d(means) of the losses the train step differentiates, with the
+# repulsive weights (0, -1): loss_gen = e_kxx + e_kyy - 2 e_kxy (rep and
+# rmb), rep's loss_dis = -e_kxx + e_kyy, rmb's loss_dis = -e_kxx_b + e_kyy_b
+COTANGENTS = {
+    "random": np.random.RandomState(3).randn(6).astype(np.float32),
+    "loss_gen": np.array([1, -2, 1, 0, 0, 0], np.float32),
+    "rep_loss_dis": np.array([-1, 0, 1, 0, 0, 0], np.float32),
+    "rmb_loss_dis": np.array([0, 0, 0, -1, 0, 1], np.float32),
+}
 
 
 def scores(b, d, seed=0):
@@ -46,6 +70,20 @@ def scores(b, d, seed=0):
         scale = rng.uniform(0.05, 0.5, (b, 1)) * np.sqrt(16.0 / d)
         out.append((rng.randn(b, d) * scale).astype(np.float32))
     return out
+
+
+def saturated_scores(b, d, seed=0):
+    """The saturated regime (e_kxx near 1): gen rows that are one row plus
+    noise at 1e-4 of its scale, so their raw distances sit at 0 up to
+    rounding and many come out negative; data rows as in ``scores``."""
+    rng = np.random.RandomState(seed)
+    base = rng.randn(1, d) * 0.25
+    sg = (base + 2.5e-5 * rng.randn(b, d)).astype(np.float32)
+    sx = (rng.randn(b, d) * rng.uniform(0.05, 0.5, (b, 1))).astype(np.float32)
+    return sg, sx
+
+
+INPUTS = {"ordinary": scores, "saturated": saturated_scores}
 
 
 def _t(a, grad=False):
@@ -150,3 +188,83 @@ def test_fused_rmb_asserts_its_specialization():
         repulsive_mmd_g_bounded_fused(_t(sg), _t(sx), lower_bound=0.5)
     with pytest.raises(AssertionError):
         repulsive_mmd_g_bounded_fused(_t(sg), _t(sx), repulsive_weights=(1.0, 0.0))
+
+
+def assert_grads_close(got, want, atols, what):
+    for name, g, w, extra in zip(("g_gen", "g_x"), got, want, atols):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=GRAD["rtol"],
+                                   atol=GRAD["atol"] + extra, err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("ct_name", sorted(COTANGENTS))
+@pytest.mark.parametrize("kind", sorted(INPUTS))
+@pytest.mark.parametrize("b,d", SHAPES)
+def test_backward_reference_matches_jax_vjp(b, d, kind, ct_name):
+    sg, sx = INPUTS[kind](b, d, seed=5)
+    ct = COTANGENTS[ct_name]
+    _, vjp = jax.vjp(lambda a, c: jax_fused_kernel_means(a, c, 1.0),
+                     jnp.asarray(sg), jnp.asarray(sx))
+    want = vjp(jnp.asarray(ct))
+    args = (_t(sg), _t(sx), _t(ct))
+    got = kernel_means_backward_reference(*args)
+    assert_grads_close([g.numpy() for g in got], want, kernel_means_backward_atol(*args),
+                       f"{kind} {(b, d)} ct={ct_name}")
+
+
+@pytest.mark.parametrize("b,d", SHAPES)
+def test_saturated_input_reaches_the_clamp(b, d):
+    """The saturated input has negative raw gen-gen distances off the
+    diagonal, so the comparisons above exercise the clamp's mask; the
+    ordinary input has none, and no pair within rounding of a threshold."""
+    ct = _t(COTANGENTS["random"])
+    sat = [_t(s) for s in saturated_scores(b, d, seed=5)]
+    r_gg = raw_distances(*sat)[0]
+    assert int((r_gg < 0).sum()) > b
+    assert kernel_means_backward_atol(*sat, ct)[0] > 0
+    ordinary = [_t(s) for s in scores(b, d, seed=5)]
+    assert int((raw_distances(*ordinary)[0] < 0).sum()) == 0
+    assert kernel_means_backward_atol(*ordinary, ct) == (0.0, 0.0)
+
+
+@pytest.mark.parametrize("kind", sorted(INPUTS))
+@pytest.mark.parametrize("b,d", SHAPES)
+def test_fused_cpu_backward_is_the_closed_form(b, d, kind, monkeypatch):
+    """On CPU tensors ``fused_kernel_means``' gradient is
+    ``kernel_means_backward_reference`` (called once per backward), and it
+    matches autograd through ``kernel_means_reference``."""
+    calls = []
+    closed_form = cuda_mmd.kernel_means_backward_reference
+
+    def counted(*args):
+        calls.append(1)
+        return closed_form(*args)
+
+    monkeypatch.setattr(cuda_mmd, "kernel_means_backward_reference", counted)
+    sg, sx = INPUTS[kind](b, d, seed=6)
+    ct = _t(COTANGENTS["random"])
+    a, c = _t(sg, True), _t(sx, True)
+    got = torch.autograd.grad(fused_kernel_means(a, c, 1.0), (a, c), ct)
+    assert len(calls) == 1
+    want = torch.autograd.grad(kernel_means_reference(a, c, 1.0), (a, c), ct)
+    assert_grads_close([g.numpy() for g in got], [w.numpy() for w in want],
+                       kernel_means_backward_atol(a.detach(), c.detach(), ct),
+                       f"{kind} {(b, d)}")
+
+
+def test_backward_wrapper_refuses_what_it_cannot_take(monkeypatch):
+    """The backward kernel's wrapper takes CUDA tensors and a contiguous
+    float32 [6] cotangent only: anything else raises before the library is
+    built or loaded, and the launch count stays put."""
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(cuda_mmd, "_library", no_build)
+    sg, sx = (_t(s) for s in scores(8, 4))
+    before = kernel_means_backward_cuda.launches
+    with pytest.raises(ValueError, match="not CUDA"):
+        kernel_means_backward_cuda(sg, sx, torch.ones(6))
+    for ct in (torch.ones(6, dtype=torch.float64), torch.ones(5), torch.ones(12)[::2],
+               torch.ones(1, 6)):
+        with pytest.raises(ValueError, match="ct must be"):
+            kernel_means_backward_cuda(sg, sx, ct)
+    assert kernel_means_backward_cuda.launches == before
