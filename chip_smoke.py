@@ -20,12 +20,29 @@ Phases, each fatal on failure:
 4. reference: a narrow float32 model, three steps on the card (kernel path)
    against the same three steps on the CPU (plain path), TF32 off;
 5. main path: the full-width CIFAR-10 SNGAN at batch 64, bf16, for the
-   'rep' and 'rmb' losses, through ``build_multi_step``; finite metrics,
-   parameters, SN vectors and BN statistics changed, one forward and two
-   backward kernel launches per step (the step's two ``autograd.grad``
-   calls); steps/s, and a profiler window of the 'rep' path;
-6. determinism: the 'rmb' main path twice more with deterministic
-   algorithms, whose end states must be bitwise equal.
+   'rep' and 'rmb' losses, through ``build_multi_step``: K=16 steps per
+   CUDA graph launch, and the same windows eager (``capture=False``).
+   A counted run profiles every window of a graphed driver (its eager
+   warm-up, the capture's replay and more replays) and of an eager one:
+   the profiler's count of kernel-means kernels is the launches reported,
+   one forward and two backward per step in every window (the step's two
+   ``autograd.grad`` calls); device busy time, idle share and activities
+   per step of a replayed and an eager window. Then unprofiled windows
+   give steps/s of both; finite metrics, parameters, SN vectors and BN
+   statistics changed;
+6. determinism, under deterministic algorithms: graphed and eager 'rmb'
+   windows fed the same code batches end bitwise equal, two graphed runs
+   end bitwise equal, and two successive replays draw different z;
+7. trainer: ``Agent.train_device_data`` at full width on a CIFAR-sized
+   uint8 dataset from a seed, resident on the card: 1,600 shuffled-epochs
+   steps across two epoch boundaries, a checkpoint and a resume by a new
+   Agent; under deterministic algorithms 800 straight steps against 400 +
+   restore + 400, and graphed against eager (``capture=False``)
+   device-data windows, shuffled and uniform, all bitwise; uniform
+   sampling;
+8. CLI: ``python -m mmdgan_torch.experiments.cifar`` host-fed on synthetic
+   data and over a seeded tfrecord resident on the card; both exit 0 and
+   print their throughput line.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -40,6 +57,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -49,18 +67,28 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mmdgan_torch.architectures import cifar_architecture  # noqa: E402
+from mmdgan_torch.data.synthetic import synthetic_image_batches  # noqa: E402
+from mmdgan_torch.data.tfrecord import np_to_tfrecords  # noqa: E402
 from mmdgan_torch.models.sngan import SNGan  # noqa: E402
 from mmdgan_torch.ops import _build, cuda_mmd  # noqa: E402
 from mmdgan_torch.train.optim import multi_opt_config  # noqa: E402
 from mmdgan_torch.train.state import tree_leaves  # noqa: E402
 from mmdgan_torch.train.step import (  # noqa: E402
+    build_device_data_step,
     build_multi_step,
     build_train_step,
+    graph_steps,
     init_train_state,
 )
+from mmdgan_torch.train.trainer import Agent  # noqa: E402
 
 BATCH, SCAN_K = 64, 16              # bench.py's cifar line
+AGENT_ROWS = 50000                  # CIFAR-10's training set
 WARMUP_CALLS, MEASURE_CALLS = 2, 8
+COUNTED_GRAPHED, COUNTED_EAGER = 4, 2   # profiled windows of phase 5's counted run
+DATA_WINDOWS = 4                    # phase 7's graphed vs eager device-data windows
+# the kernel-means kernels by their names in a profile, and launches per step
+KERNEL_EVENTS = {"kernel_means_fwd": 1, "kernel_means_bwd": 2}
 KERNEL_SHAPES = [(64, 16), (23, 5), (256, 16)]
 VAL_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-8)
@@ -335,131 +363,391 @@ def check_against_cpu(dev) -> None:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def main_path_setup(dev, loss_type: str) -> tuple:
+def main_path_setup(dev, loss_type: str, capture: bool = True) -> tuple:
     """The full-width model at bf16, its train state from seed 0, the
-    K-step driver and one K-stacked batch of noise from seed 0."""
+    K-step driver (graphed unless ``capture=False``) and one K-stacked
+    batch of noise from seed 0."""
     model = SNGan(cifar_architecture(), loss_type=loss_type)
     opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
     ts = init_train_state(model, 0, opt_d, opt_g)
-    multi = build_multi_step(model, opt_d, opt_g, SCAN_K)
+    multi = build_multi_step(model, opt_d, opt_g, SCAN_K, capture=capture)
     rng = np.random.RandomState(0)
     batches = {"x": torch.tensor(
         rng.randn(SCAN_K, BATCH, 32, 32, 3).astype(np.float32).clip(-1, 1), device=dev)}
     return model, ts, multi, batches
 
 
-def run_main_path(dev, loss_type: str, card: str, profile: bool) -> tuple:
-    """Phase 5 for one loss; returns the forward and backward kernel
-    launches of the run and the last step's e_kxx."""
-    model, ts, multi, batches = main_path_setup(dev, loss_type)
-    params0 = [p.detach().clone() for p in tree_leaves(ts.params)]
-    state0 = [v.clone() for v in tree_leaves(ts.net_state)]
-    torch.cuda.reset_peak_memory_stats(dev)
-
-    forward, backward = cuda_mmd.kernel_means_cuda, cuda_mmd.kernel_means_backward_cuda
-    forward.launches = backward.launches = 0
+def timed_windows(multi, ts, batches, **kw) -> tuple:
+    """WARMUP_CALLS windows (for a fresh graphed driver: the eager warm-up,
+    then the capture), then MEASURE_CALLS timed; returns (ts, last metrics,
+    steps/s)."""
     for _ in range(WARMUP_CALLS):
-        ts, m = multi(ts, batches)
+        ts, m = multi(ts, batches, **kw)
     torch.cuda.synchronize()
     start = time.perf_counter()
     for _ in range(MEASURE_CALLS):
-        ts, m = multi(ts, batches)
+        ts, m = multi(ts, batches, **kw)
     torch.cuda.synchronize()
-    dur = time.perf_counter() - start
-    launches = (forward.launches, backward.launches)
-    steps = (WARMUP_CALLS + MEASURE_CALLS) * SCAN_K
-    assert launches == (steps, 2 * steps), (
-        f"{loss_type}: {launches} forward and backward kernel launches for {steps} steps")
+    return ts, m, MEASURE_CALLS * SCAN_K / (time.perf_counter() - start)
 
+
+def run_main_path(dev, loss_type: str, card: str) -> tuple:
+    """Phase 5 for one loss. Returns the forward and backward kernel-means
+    launches the profiler counted and the graphed run's last e_kxx.
+
+    Counted run: a graphed driver from seed 0 runs COUNTED_GRAPHED windows
+    (its eager warm-up, the capture with its first replay, then replays)
+    and an eager one (``capture=False``) COUNTED_EAGER windows, each window
+    under torch.profiler. The profiler records every kernel that runs,
+    those of a replayed graph one by one (a capture runs none), so its
+    count is the launches made; each window must hold one forward and two
+    backward per step. The wrappers' counters, zeroed just before, see
+    eager calls and captures: they must equal the eager windows' launches
+    plus K forward and 2K backward per capture.
+    Timed run: WARMUP_CALLS + MEASURE_CALLS more windows of each driver,
+    unprofiled, for steps/s."""
+    forward, backward = cuda_mmd.kernel_means_cuda, cuda_mmd.kernel_means_backward_cuda
+    model, ts, multi, batches = main_path_setup(dev, loss_type)
+    _, ts_eager, eager_multi, _ = main_path_setup(dev, loss_type, capture=False)
+    params0 = [p.detach().clone() for p in tree_leaves(ts.params)]
+    state0 = [v.clone() for v in tree_leaves(ts.net_state)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    forward.launches = backward.launches = 0
+    graphed = [_profiled_window(multi, ts, batches, f"{loss_type} graphed window {i}")
+               for i in range(COUNTED_GRAPHED)]
+    eager = [_profiled_window(eager_multi, ts_eager, batches, f"{loss_type} eager window {i}")
+             for i in range(COUNTED_EAGER)]
+    graphs = multi.graphs
+    assert (graphs.eager, graphs.captures, graphs.replays) == (1, 1, COUNTED_GRAPHED - 1), (
+        graphs.eager, graphs.captures, graphs.replays)
+    counted = [sum(w[kernel] for w in graphed + eager) for kernel in KERNEL_EVENTS]
+    eager_counted = [graphed[0][kernel] + sum(w[kernel] for w in eager) for kernel in KERNEL_EVENTS]
+    captured = [graphs.captures * per_step * SCAN_K for per_step in KERNEL_EVENTS.values()]
+    counters = [forward.launches, backward.launches]
+    assert counters == [e + c for e, c in zip(eager_counted, captured)], (
+        f"{loss_type}: counters {counters}, eager windows {eager_counted}, captured {captured}")
+
+    ts, m, graphed_sps = timed_windows(multi, ts, batches)
+    ts_eager, m_eager, eager_sps = timed_windows(eager_multi, ts_eager, batches)
     for k, v in m.items():
         assert torch.isfinite(v).all(), f"{loss_type}: non-finite {k}"
     for what, before, tree in (("parameter", params0, ts.params),
                                ("SN/BN state", state0, ts.net_state)):
         same = sum(torch.equal(a, b) for a, b in zip(before, tree_leaves(tree)))
         assert same == 0, f"{loss_type}: {same} {what} tensors unchanged"
+    assert int(ts.step) == (COUNTED_GRAPHED + WARMUP_CALLS + MEASURE_CALLS) * SCAN_K
     images = model.generate(ts.params, ts.net_state, torch.Generator(dev).manual_seed(0), 8)
     assert images.shape == (8, 32, 32, 3) and torch.isfinite(images).all()
-
-    steps_per_s = MEASURE_CALLS * SCAN_K / dur
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
     e_kxx = float(m["e_kxx"][-1])
-    log(f"[main] cifar10 sngan {loss_type} b{BATCH} bf16: {steps_per_s:.2f} steps/s "
-        f"({MEASURE_CALLS * SCAN_K} steps after {WARMUP_CALLS * SCAN_K} warm-up), "
-        f"loss_gen={float(m['loss_gen'][-1]):.5f} e_kxx={e_kxx:.5f}, "
-        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB, "
-        f"kernel launches {launches[0]} forward and {launches[1]} backward for {steps} steps; "
+    log(f"[main] cifar10 sngan {loss_type} b{BATCH} bf16: graphed {graphed_sps:.2f} steps/s, "
+        f"eager {eager_sps:.2f} steps/s ({MEASURE_CALLS * SCAN_K} steps each after "
+        f"{WARMUP_CALLS * SCAN_K} warm-up, unprofiled; one CUDA graph launch per {SCAN_K} "
+        f"steps), loss_gen={float(m['loss_gen'][-1]):.5f} e_kxx={e_kxx:.5f} (eager run "
+        f"e_kxx={float(m_eager['e_kxx'][-1]):.5f}), peak memory {peak:.0f} MiB, "
+        f"{graphs.eager} eager window + {graphs.captures} capture + {graphs.replays} replays; "
         f"card: {card}")
-    if profile:
-        _profile(multi, ts, batches, 1e3 / steps_per_s)
-    return launches, e_kxx
+    log(f"[profile] {loss_type}: kernel-means launches counted by the profiler in "
+        f"{COUNTED_GRAPHED} graphed windows (1 eager warm-up, {COUNTED_GRAPHED - 1} replayed) "
+        f"and {COUNTED_EAGER} eager ones: {counted[0]} kernel_means_fwd, {counted[1]} "
+        f"kernel_means_bwd in {(COUNTED_GRAPHED + COUNTED_EAGER) * SCAN_K} steps; the wrappers' "
+        f"counters over the same windows {counters[0]}/{counters[1]} (eager calls and one "
+        "capture)")
+    _log_profile(graphed[-1], 1e3 / graphed_sps, f"{loss_type} graphed (a replay)")
+    _log_profile(eager[-1], 1e3 / eager_sps, f"{loss_type} eager")
+    return counted, e_kxx
 
 
-def check_determinism(dev, default_e_kxx: float) -> None:
-    """Phase 6: the 'rmb' main path's 160 steps twice more, with
-    ``torch.use_deterministic_algorithms`` and deterministic cuDNN
-    algorithms. The two end states (parameters, SN vectors, BN statistics,
-    last metrics) must be bitwise equal, which shows the same code on the
-    same seeds is reproducible once the algorithms are; the default run's
-    e_kxx is printed beside theirs."""
+def _end_state(ts, m) -> list:
+    return ts.tensors() + [ts.rng.get_state()] + [m[k] for k in sorted(m)]
+
+
+def _differ(a: list, b: list) -> int:
+    return sum(not torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_determinism(dev) -> None:
+    """Phase 6, with ``torch.use_deterministic_algorithms`` and
+    deterministic cuDNN algorithms, on the 'rmb' main path:
+    - graphed and eager windows fed the same K-stacked code batches end
+      bitwise equal (4 windows: the graph's eager warm-up, its capture and
+      two replays);
+    - two graphed runs drawing their own z end bitwise equal;
+    - the z of two successive replays differ: a step that draws z from
+      the state's generator (as the train step does) and hands it on as
+      its code batch is graphed, and the z it drew are read after each
+      replay."""
     flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     torch.use_deterministic_algorithms(True, warn_only=True)
+    windows = 4
     try:
-        ends = []
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            for _ in range(2):
-                _, ts, multi, batches = main_path_setup(dev, "rmb")
-                for _ in range(WARMUP_CALLS + MEASURE_CALLS):
-                    ts, m = multi(ts, batches)
-                ends.append((tree_leaves(ts.params) + tree_leaves(ts.net_state), m))
-        torch.cuda.synchronize()
+            codes = {"x": torch.tensor(np.random.RandomState(9).randn(
+                SCAN_K, BATCH, 128).astype(np.float32), device=dev)}
+            ends = {}
+            for name, capture, kw in (("graphed", True, {"code_batches": codes}),
+                                      ("eager", False, {"code_batches": codes}),
+                                      ("graphed z", True, {}), ("graphed z again", True, {})):
+                _, ts, multi, batches = main_path_setup(dev, "rmb", capture=capture)
+                for _ in range(windows):
+                    ts, m = multi(ts, batches, **kw)
+                if capture:
+                    assert multi.graphs.replays == windows - 1, multi.graphs.replays
+                ends[name] = _end_state(ts, m)
+            torch.cuda.synchronize()
+            z_runs = _replayed_codes(dev)
         for msg in sorted({str(w.message)[:160] for w in caught}):
             log(f"[determinism] warning: {msg}")
-        (leaves_a, m_a), (leaves_b, m_b) = ends
-        differ = sum(not torch.equal(a, b) for a, b in zip(leaves_a, leaves_b))
-        differ += sum(not torch.equal(m_a[k], m_b[k]) for k in m_a)
-        assert differ == 0, f"determinism: {differ} tensors differ between two deterministic runs"
-        log(f"[determinism] rmb b{BATCH} bf16, {(WARMUP_CALLS + MEASURE_CALLS) * SCAN_K} steps "
-            f"twice with deterministic algorithms: end states bitwise equal, e_kxx "
-            f"{float(m_a['e_kxx'][-1]):.5f}; the default-algorithm run above ended at "
-            f"e_kxx {default_e_kxx:.5f}")
+        differ = _differ(ends["graphed"], ends["eager"])
+        assert differ == 0, f"determinism: {differ} tensors differ, graphed vs eager windows"
+        differ = _differ(ends["graphed z"], ends["graphed z again"])
+        assert differ == 0, f"determinism: {differ} tensors differ between two graphed runs"
+        assert not torch.equal(z_runs[0], z_runs[1]), "two replays drew the same z"
+        log(f"[determinism] rmb b{BATCH} bf16, {windows * SCAN_K} steps under deterministic "
+            f"algorithms: graphed and eager windows fed the same z end bitwise equal "
+            f"({len(ends['eager'])} tensors); two graphed runs drawing their own z end bitwise "
+            f"equal; two successive replays drew different z (max |z1 - z2| "
+            f"{float((z_runs[0] - z_runs[1]).abs().max()):.3f})")
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
 
-def _profile(multi, ts, batches, step_ms: float) -> None:
-    """One call (SCAN_K steps) under torch.profiler: device busy time per
-    step, its share of the untraced step time ``step_ms`` (the traced wall
-    time includes the profiler's own cost), the kernel-means kernels'
-    device time and launches per step (one forward, two backward), and the
-    kernels taking most time."""
+def _replayed_codes(dev) -> list:
+    """The z drawn in the second and third windows of a graphed run (its
+    first replay, right after the capture, and the next)."""
+    model = SNGan(cifar_architecture(), loss_type="rmb")
+    opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+    ts = init_train_state(model, 0, opt_d, opt_g)
+    step = build_train_step(model, opt_d, opt_g)
+    drawn = []
+
+    def recording_step(ts, batch, do_dis, do_gen):
+        code = model.sample_codes(ts.rng, BATCH)
+        drawn.append(code["x"])
+        return step(ts, batch, do_dis, do_gen, code)
+
+    multi = graph_steps(recording_step, SCAN_K)
+    batches = {"x": torch.zeros(SCAN_K, BATCH, 32, 32, 3, device=dev)}
+    out = []
+    for call in range(3):
+        if call == 1:
+            drawn.clear()   # the capture records the graph's own z buffers
+        ts, _ = multi(ts, batches)
+        if call >= 1:
+            out.append(torch.stack(drawn).clone())
+    assert multi.graphs.replays == 2
+    return out
+
+
+def _profiled_window(multi, ts, batches, what: str) -> dict:
+    """One window (SCAN_K steps) under torch.profiler. Returns the
+    kernel-means launches in it (one forward and two backward per step,
+    asserted) and its device timeline: the busy time per step (the sum
+    of its kernels' times, and the union of their intervals), the span
+    from the first kernel's start to the last one's end, the traced wall
+    time, the device activities, and the time by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         multi(ts, batches)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        log("[profile] the profiler recorded no device activity: not measured")
-        return
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / SCAN_K
-    log(f"[profile] rep: device busy {busy:.4f} ms/step of {step_ms:.4f} ms/step untraced "
-        f"(idle {100 * (1 - busy / step_ms):.1f}%); traced wall {wall_ms / SCAN_K:.4f} "
-        f"ms/step; {len(kernels) / SCAN_K:.0f} device activities per step")
-    by_name = {}
+    assert kernels, f"the profiler recorded no device activity in the {what}"
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    covered, reach = 0, spans[0][0]
+    for lo, hi in spans:
+        covered += max(0, hi - max(lo, reach))
+        reach = max(reach, hi)
+    out = {"busy": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / SCAN_K,
+           "union": covered / 1e3 / SCAN_K, "span": (reach - spans[0][0]) / 1e3 / SCAN_K,
+           "wall": wall_ms / SCAN_K, "activities": len(kernels) / SCAN_K, "by_name": {}}
     for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    for kernel, per_step in (("kernel_means_fwd", 1), ("kernel_means_bwd", 2)):
-        mine = [e for e in kernels if kernel in e.name]
-        ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / SCAN_K
+        out["by_name"][e.name] = out["by_name"].get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for kernel, per_step in KERNEL_EVENTS.items():
+        out[kernel] = sum(kernel in e.name for e in kernels)
+        assert out[kernel] == per_step * SCAN_K, (
+            f"{what}: {out[kernel]} {kernel} launches in {SCAN_K} steps")
+    return out
+
+
+def _log_profile(prof: dict, step_ms: float, what: str) -> None:
+    """The device timeline of one profiled window: busy time, the idle
+    share inside the kernels' span and against the untraced step time
+    ``step_ms`` (the traced wall time includes the profiler's own cost),
+    the kernel-means kernels' device time, and the kernels taking most
+    time."""
+    log(f"[profile] {what}: device busy {prof['busy']:.4f} ms/step (union of kernel intervals "
+        f"{prof['union']:.4f}) over a span of {prof['span']:.4f} ms/step from first kernel to "
+        f"last: idle {100 * (1 - prof['union'] / prof['span']):.1f}% of the span; against the "
+        f"untraced step of {step_ms:.4f} ms idle {100 * (1 - prof['union'] / step_ms):.1f}%; "
+        f"traced wall {prof['wall']:.4f} ms/step; {prof['activities']:.0f} device activities "
+        "per step")
+    for kernel in KERNEL_EVENTS:
+        ms = sum(t for name, t in prof["by_name"].items() if kernel in name) / SCAN_K
         log(f"[profile]   kernel means: {kernel} {ms:.5f} ms/step on the device, "
-            f"{len(mine) / SCAN_K:g} launches/step")
-        assert len(mine) == per_step * SCAN_K, f"{kernel}: {len(mine)} launches in {SCAN_K} steps"
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            f"{prof[kernel] / SCAN_K:g} launches/step")
+    for name, t in sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   {t / SCAN_K:8.4f} ms/step  {name[:100]}")
+
+
+def run_agent(dev, out_dir: str, name: str, data: dict, max_step: int, sampling: str,
+              load_ckpt: bool = False, do_save: bool = True, seed: int = 0) -> tuple:
+    """``Agent.train_device_data`` on the full-width rep model at b64
+    bf16, K=16, from the state of seed ``seed`` (restored first when
+    ``load_ckpt``); returns (ts, steps/s)."""
+    model = SNGan(cifar_architecture(), loss_type="rep")
+    opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+    ts = init_train_state(model, seed, opt_d, opt_g)
+    agent = Agent(name, "t", output_dir=out_dir, load_ckpt=load_ckpt, do_save=do_save,
+                  query_step=400, print_loss=False, use_tensorboard=False)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ts = agent.train_device_data(model, opt_d, opt_g, ts, data, max_step=max_step,
+                                 step_per_epoch=AGENT_ROWS // BATCH, batch_size=BATCH,
+                                 steps_per_call=SCAN_K, sampling=sampling)
+    torch.cuda.synchronize()
+    return ts, max_step / (time.perf_counter() - start)
+
+
+def check_trainer(dev) -> None:
+    """Phase 7: the training runtime at full width on a CIFAR-sized
+    50,000 x 32 x 32 x 3 uint8 dataset from seed 0, resident on the card:
+    shuffled epochs (781 batches each) over 1,600 steps, which crosses two
+    epoch boundaries, with a checkpoint, then a new Agent that restores
+    it and runs 160 more; under deterministic algorithms, 800 straight
+    steps against 400 + restore + 400, and graphed against eager
+    device-data windows of both samplings (``_device_data_ends``), all
+    bitwise; 320 uniform steps; 40
+    host-fed single steps (``Agent.train``), the last 5 traced; then the
+    steady-state steps/s of graphed device-data windows."""
+    data = {"x": np.random.RandomState(0).randint(0, 256, (AGENT_ROWS, 32, 32, 3), np.uint8),
+            "y": None}
+    data_x = torch.tensor(data["x"], device=dev)
+    mib = data["x"].nbytes / 2**20
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.reset_peak_memory_stats(dev)
+        ts, sps = run_agent(dev, out, "long", data, 1600, "shuffled_epochs")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        assert int(ts.step) == 1600 and all(torch.isfinite(t.float()).all() for t in ts.tensors())
+        ts2, sps2 = run_agent(dev, out, "long", data, 160, "shuffled_epochs", load_ckpt=True,
+                              seed=5)
+        assert int(ts2.step) == 1760
+        log(f"[trainer] Agent.train_device_data rep b{BATCH} bf16 K={SCAN_K}, shuffled epochs "
+            f"over {AGENT_ROWS} rows ({mib:.1f} MiB uint8 on the card): 1600 steps at "
+            f"{sps:.2f} steps/s across epoch boundaries 781 and 1562, checkpoint at 1600; a new "
+            f"Agent restored it and ran to step 1760 at {sps2:.2f} steps/s; peak memory "
+            f"{peak:.0f} MiB")
+
+        flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            straight, _ = run_agent(dev, out, "straight", data, 800, "shuffled_epochs",
+                                    do_save=False)
+            run_agent(dev, out, "halves", data, 400, "shuffled_epochs")
+            resumed, _ = run_agent(dev, out, "halves", data, 400, "shuffled_epochs",
+                                   load_ckpt=True, do_save=False, seed=7)
+            torch.cuda.synchronize()
+            windows = {sampling: _device_data_ends(dev, data_x, sampling)
+                       for sampling in ("shuffled_epochs", "uniform")}
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        differ = _differ(straight.tensors() + [straight.rng.get_state()],
+                         resumed.tensors() + [resumed.rng.get_state()])
+        assert int(resumed.step) == 800 and differ == 0, (
+            f"trainer: {differ} tensors differ, 800 straight vs 400 + restore + 400")
+        for sampling, (graphed, eager) in windows.items():
+            differ = _differ(graphed, eager)
+            assert differ == 0, (f"trainer: {differ} of {len(eager)} tensors differ, graphed vs "
+                                 f"eager {sampling} device-data windows")
+        ts, sps = run_agent(dev, out, "uniform", data, 320, "uniform", do_save=False)
+        assert int(ts.step) == 320 and all(torch.isfinite(t.float()).all() for t in ts.tensors())
+        log(f"[trainer] under deterministic algorithms 800 straight steps equal 400 + restore + "
+            f"400 bitwise (across the boundary at 781); graphed and eager (capture=False) "
+            f"device-data windows end bitwise equal, shuffled epochs and uniform "
+            f"({DATA_WINDOWS * SCAN_K} steps each, z and indices drawn in the windows, "
+            f"{len(windows['uniform'][0])} tensors); uniform sampling 320 steps at {sps:.2f} "
+            "steps/s (each Agent call's steps/s includes the upload, the eager first window, "
+            "the capture and the final checkpoint)")
+        model = SNGan(cifar_architecture(), loss_type="rep")
+        opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+        ts = init_train_state(model, 0, opt_d, opt_g)
+        agent = Agent("host", "t", output_dir=out, do_trace=True, do_save=False,
+                      print_loss=False, use_tensorboard=False)
+        ts = agent.train(build_train_step(model, opt_d, opt_g), ts,
+                         synthetic_image_batches(BATCH, 32, 32, 3), max_step=40,
+                         step_per_epoch=AGENT_ROWS // BATCH)
+        trace = os.path.join(agent.summary_folder, "trace.json")
+        assert int(ts.step) == 40 and os.path.getsize(trace) > 0
+    log("[trainer] Agent.train, host-fed single steps through the prefetcher: 40 steps, the "
+        "last 5 traced by torch.profiler into trace.json")
+    rates = {}
+    for sampling in ("shuffled_epochs", "uniform"):
+        model = SNGan(cifar_architecture(), loss_type="rep")
+        opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+        ts = init_train_state(model, 0, opt_d, opt_g)
+        fn = build_device_data_step(model, opt_d, opt_g, SCAN_K, BATCH, sampling=sampling)
+        rng = torch.Generator(dev).manual_seed(1)
+        _, _, rates[sampling] = timed_windows(lambda ts, _: fn(ts, data_x, None, rng), ts, None)
+    log(f"[trainer] graphed device-data windows, steady state ({MEASURE_CALLS * SCAN_K} steps "
+        f"after {WARMUP_CALLS * SCAN_K}): shuffled epochs {rates['shuffled_epochs']:.2f} steps/s, "
+        f"uniform {rates['uniform']:.2f} steps/s")
+
+
+def _device_data_ends(dev, data_x, sampling: str) -> tuple:
+    """The end states of a graphed and an eager (``capture=False``)
+    ``build_device_data_step`` driver, each DATA_WINDOWS windows from the
+    state of seed 0 and a sampling generator of seed 1: the graphed one's
+    eager warm-up, its capture and replays, whose sampler reads the
+    device step inside the graph; z drawn from the state's generator."""
+    ends = []
+    for capture in (True, False):
+        model = SNGan(cifar_architecture(), loss_type="rep")
+        opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+        ts = init_train_state(model, 0, opt_d, opt_g)
+        fn = build_device_data_step(model, opt_d, opt_g, SCAN_K, BATCH, sampling=sampling,
+                                    capture=capture)
+        rng = torch.Generator(dev).manual_seed(1)
+        for _ in range(DATA_WINDOWS):
+            ts, m = fn(ts, data_x, None, rng)
+        if capture:
+            assert fn.graphs.replays == DATA_WINDOWS - 1, fn.graphs.replays
+        ends.append(_end_state(ts, m) + [rng.get_state()])
+    return tuple(ends)
+
+
+def check_cli() -> None:
+    """Phase 8: ``python -m mmdgan_torch.experiments.cifar`` in a
+    subprocess, host-fed on synthetic data, then over a tfrecord of 4,096
+    seeded images (made by the port's writer) resident on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        x = np.random.RandomState(1).randint(0, 256, (4096, 3, 32, 32), np.uint8)
+        np_to_tfrecords(x, None, os.path.join(tmp, "cifar"))
+        common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1",
+                  "--query-step", "160", "--out-dir", tmp]
+        # host-fed: 20 graphed windows and 8 single steps
+        for what, extra in (("synthetic, host-fed", ["--synthetic-data", "--steps-per-chunk",
+                                                     "328"]),
+                            ("tfrecord, on the card", ["--device-dataset", "--sampling",
+                                                       "shuffled_epochs", "--data-dir", tmp,
+                                                       "--steps-per-chunk", "320"])):
+            start = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "mmdgan_torch.experiments.cifar", *common, *extra],
+                cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                timeout=300)
+            assert proc.returncode == 0, f"cifar CLI ({what}) exited {proc.returncode}:\n" \
+                                         f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}"
+            lines = [ln for ln in proc.stdout.splitlines() if "train_steps_per_sec" in ln]
+            assert lines, f"cifar CLI ({what}) printed no throughput line"
+            log(f"[cli] {what}: exit 0 in {time.perf_counter() - start:.1f} s; {lines[-1]}")
 
 
 def main() -> int:
@@ -488,11 +776,12 @@ def main() -> int:
 
     kernels = [check_kernel_means(dev), check_kernel_means_backward(dev)]
     check_against_cpu(dev)
-    runs = {loss: run_main_path(dev, loss, card, profile=(loss == "rep"))
-            for loss in ("rep", "rmb")}
+    runs = {loss: run_main_path(dev, loss, card) for loss in ("rep", "rmb")}
     for i, kernel in enumerate(kernels):
         kernel["launches"] = sum(launches[i] for launches, _ in runs.values())
-    check_determinism(dev, runs["rmb"][1])
+    check_determinism(dev)
+    check_trainer(dev)
+    check_cli()
 
     log(json.dumps({"kernels": kernels}))
     log(card)

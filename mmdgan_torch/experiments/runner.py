@@ -1,0 +1,240 @@
+"""The experiment runner of the port (``experiments/runner.py:20-345``): the
+my_test_*.py protocol as a CLI, train N chunks and log the SN sigmas
+after each, on one device (``--device``, ``cuda`` by default).
+
+The flags are the JAX runner's, with its defaults. A flag whose module is
+not ported yet raises and names its ROADMAP item: the eval sampling and
+the IS/FID scores (A14: a run needs ``--skip-sampling --skip-metrics``),
+``--use-pallas`` (the TPU kernel; the port always runs its own CUDA
+kernel-means kernel, B1), ``--micro-batches`` (A12), ``--compilation-cache``
+(A16), ``--bf16-moments`` (A7), ``--imbalanced-update`` with
+``--steps-per-call`` > 1 (A12), ``--num-class``/``--sample-same-class``
+(A13/A12) and ``--summary-histograms`` (A11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description=f"Train MMD-GAN ({dataset}) with the PyTorch port — rebuild of "
+                    f"the reference my_test_{dataset}.py")
+    p.add_argument("--loss", default="rep", help="loss type: rep | rmb")
+    p.add_argument("--lr-dis", type=float, default=5e-4)
+    p.add_argument("--lr-gen", type=float, default=2e-4)
+    p.add_argument("--end-lr", type=float, default=1e-7,
+                   help="end of the decay schedules of SGD/momentum (adam keeps its lr)")
+    p.add_argument("--optimizer", default="adam")
+    p.add_argument("--bf16-moments", action="store_true",
+                   help="bfloat16 optimizer slots (not ported: ROADMAP A7)")
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--act-k", type=float, default=None,
+                   help="activation compensation multiplier (default per dataset)")
+    p.add_argument("--rep-w0", type=float, default=0.0)
+    p.add_argument("--rep-w1", type=float, default=-1.0)
+    p.add_argument("--chunks", type=int, default=8,
+                   help="number of train->eval rounds (reference: 8)")
+    p.add_argument("--steps-per-chunk", type=int, default=12500)
+    p.add_argument("--num-class", type=int, default=0)
+    p.add_argument("--sample-same-class", action="store_true")
+    p.add_argument("--imbalanced-update", default=None,
+                   help="'d,g' period list (e.g. '1,5'), or 'dynamic'")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--out-dir", default=None)
+    p.add_argument("--synthetic-data", action="store_true",
+                   help="train on synthetic images (no dataset needed)")
+    p.add_argument("--debug-mode", default="false", choices=["false", "true", "none"],
+                   help="false: full run; true: short debug run; none: print model only")
+    p.add_argument("--debug-step", type=int, default=400)
+    p.add_argument("--query-step", type=int, default=1000)
+    p.add_argument("--trace", action="store_true", help="profile last 5 steps")
+    p.add_argument("--no-save", action="store_true")
+    p.add_argument("--load-ckpt", action="store_true", default=True)
+    p.add_argument("--fresh", dest="load_ckpt", action="store_false")
+    p.add_argument("--eval-batches", type=int, default=781,
+                   help="metric batches per eval (781*64 ~ 50k samples)")
+    p.add_argument("--skip-metrics", action="store_true")
+    p.add_argument("--skip-sampling", action="store_true")
+    p.add_argument("--inception-pb", default=None,
+                   help="path to frozen inception .pb for exact IS/FID parity")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--steps-per-call", type=int, default=16,
+                   help="K train steps per CUDA graph launch; needs a constant "
+                        "update schedule")
+    p.add_argument("--device-dataset", action="store_true",
+                   help="upload the whole dataset to device memory once and take "
+                        "batches on the device")
+    p.add_argument("--sampling", default="uniform", choices=["uniform", "shuffled_epochs"],
+                   help="device-dataset batches: uniform with-replacement gather, or "
+                        "shuffled_epochs (without-replacement epoch slices, re-permuted "
+                        "per epoch)")
+    p.add_argument("--host-decode", action="store_true",
+                   help="scale images to f32 on the host instead of the device")
+    p.add_argument("--use-pallas", action="store_true",
+                   help="the TPU's fused Pallas MMD kernel (not ported: ROADMAP B1)")
+    p.add_argument("--summary-histograms", action="store_true",
+                   help="hist/* summaries from the step (not ported: ROADMAP A11)")
+    p.add_argument("--param-hist-step", type=int, default=0,
+                   help="write per-variable parameter histograms every N steps (0 = off)")
+    p.add_argument("--micro-batches", type=int, default=1, metavar="M",
+                   help="gradient accumulation (not ported: ROADMAP A12)")
+    p.add_argument("--compilation-cache", default="", metavar="DIR",
+                   help="persistent compilation cache (not ported: ROADMAP A16)")
+    p.add_argument("--device", default="cuda",
+                   help="the device to train on: cuda (default) or cpu")
+    return p
+
+
+def refuse_unported(args) -> None:
+    """Raise for a flag whose module the port does not have yet."""
+    unported = [
+        (not (args.skip_sampling and args.skip_metrics),
+         "eval sampling and IS/FID scores are not ported yet (ROADMAP A14): "
+         "pass --skip-sampling --skip-metrics"),
+        (args.use_pallas, "--use-pallas selects the TPU's Pallas kernel; the port runs "
+                          "its CUDA kernel-means kernel (ROADMAP B1)"),
+        (args.micro_batches > 1, "--micro-batches is not ported yet (ROADMAP A12)"),
+        (bool(args.compilation_cache), "--compilation-cache is not ported yet (ROADMAP A16)"),
+        (args.bf16_moments, "--bf16-moments is not ported yet (ROADMAP A7)"),
+        (args.imbalanced_update is not None and args.steps_per_call > 1,
+         "--imbalanced-update inside a --steps-per-call window is not ported yet "
+         "(ROADMAP A12); pass --steps-per-call 1"),
+        (args.num_class >= 2, "conditional models (--num-class) are not ported yet "
+                              "(ROADMAP A13)"),
+        (args.sample_same_class, "--sample-same-class is not ported yet (ROADMAP A12)"),
+        (args.summary_histograms, "--summary-histograms is not ported yet (ROADMAP A11)"),
+    ]
+    for refused, why in unported:
+        if refused:
+            raise NotImplementedError(why)
+    if args.sampling != "uniform" and not (args.device_dataset and not args.synthetic_data):
+        raise ValueError("--sampling shuffled_epochs only applies to the device-resident "
+                         "dataset: pass --device-dataset (without --synthetic-data)")
+
+
+def run_experiment(args, architecture: dict, filename, num_instance: int,
+                   input_chw: Sequence[int]):
+    from mmdgan_torch import resolve_device
+    from mmdgan_torch.config import get_config, set_config
+    from mmdgan_torch.data.pipeline import ReadTFRecords
+    from mmdgan_torch.data.synthetic import synthetic_image_batches
+    from mmdgan_torch.models.sngan import SNGan
+    from mmdgan_torch.train.optim import multi_opt_config
+    from mmdgan_torch.train.step import build_train_step, init_train_state
+    from mmdgan_torch.train.trainer import Agent
+
+    refuse_unported(args)
+    cfg = get_config()
+    if args.data_dir:
+        cfg = cfg.with_updates(data_dir=args.data_dir)
+    if args.out_dir:
+        cfg = cfg.with_updates(output_dir=args.out_dir)
+    set_config(cfg)
+    device = resolve_device(args.device)
+
+    c, h, w = input_chw
+    loss_type = args.loss
+    lr_list = [args.lr_dis, args.lr_gen]
+    rep_weights = [args.rep_w0, args.rep_w1]
+    act_k = architecture["discriminator"][-1].get("act_k", 1.0)
+    sub_folder = "sngan_{}_{:.0e}_{:.0e}_k{:.3g}_{:.1f}_{:.1f}".format(
+        loss_type, lr_list[0], lr_list[1], act_k, rep_weights[0], rep_weights[1])
+
+    debug_mode = {"false": False, "true": True, "none": None}[args.debug_mode]
+    imbalanced = args.imbalanced_update
+    if imbalanced and imbalanced != "dynamic":
+        imbalanced = [int(v) for v in imbalanced.split(",")]
+    name = filename if isinstance(filename, str) else filename[0].split("_")[0]
+    agent = Agent(name, sub_folder, load_ckpt=args.load_ckpt, do_trace=args.trace,
+                  do_save=not args.no_save, debug_mode=debug_mode,
+                  debug_step=args.debug_step, query_step=args.query_step,
+                  imbalanced_update=imbalanced, print_loss=True,
+                  output_dir=cfg.output_dir, param_hist_step=args.param_hist_step)
+    compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    model = SNGan(architecture, loss_type=loss_type, rep_weights=rep_weights,
+                  compute_dtype=compute_dtype, device=device)
+
+    step_per_epoch = int(np.floor(num_instance / args.batch_size))
+    # file_repeat gcd trick (my_sngan.py:381-397)
+    if args.steps_per_chunk >= step_per_epoch or isinstance(filename, str):
+        file_repeat = int(args.batch_size / math.gcd(num_instance, args.batch_size))
+        shuffle_file = False
+    else:
+        file_repeat = 1
+        shuffle_file = True
+
+    def make_data_iter():
+        if args.synthetic_data:
+            return synthetic_image_batches(args.batch_size, h, w, c, seed=args.seed)
+        return ReadTFRecords(filename, batch_size=args.batch_size, file_repeat=file_repeat,
+                             shuffle_file=shuffle_file, device_decode=not args.host_decode,
+                             ).shape2image(c, h, w).next_batch()
+
+    opt_d, opt_g = multi_opt_config(lr_list, optimizer=args.optimizer)
+    ts = init_train_state(model, args.seed, opt_d, opt_g, device=device)
+    use_device_data = args.device_dataset and not args.synthetic_data
+    step_fn = None if use_device_data else build_train_step(model, opt_d, opt_g, device=device)
+    print(f"Device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}); "
+          f"Num instance: {num_instance}; Batch: {args.batch_size}; File_repeat: {file_repeat}",
+          flush=True)
+
+    device_data = None
+    if use_device_data:
+        device_data = ReadTFRecords(filename, batch_size=args.batch_size,
+                                    device_decode=True).shape2image(c, h, w).load_all()
+        print(f"Device-resident dataset: x{device_data['x'].shape} {device_data['x'].dtype} "
+              f"({device_data['x'].nbytes / 2**20:.1f} MiB to the device)", flush=True)
+
+    # assumed TF1-GPU reference throughput at this resolution (bench.py
+    # BASELINES: 12 steps/s at 32x32, scaled by pixel count)
+    baseline_sps = 12.0 * (32.0 / max(h, w)) ** 2
+    train_seconds = 0.0
+    train_steps = 0
+    max_step = args.steps_per_chunk if debug_mode is not True else args.debug_step
+
+    for chunk in range(args.chunks):
+        step_before = int(ts.step)
+        t_train = time.time()
+        images = lambda ts: model.generate(ts.params, ts.net_state,
+                                           torch.Generator(device).manual_seed(chunk), 8)
+        if device_data is not None:
+            ts = agent.train_device_data(
+                model, opt_d, opt_g, ts, device_data, max_step=max_step,
+                step_per_epoch=step_per_epoch, batch_size=args.batch_size,
+                steps_per_call=max(args.steps_per_call, 16), summary_image_fn=images,
+                seed=args.seed + chunk, sampling=args.sampling,
+                # the epoch permutations must not change at chunk boundaries
+                sampling_seed=args.seed)
+        else:
+            ts = agent.train(step_fn, ts, make_data_iter(), max_step=max_step,
+                             step_per_epoch=step_per_epoch, summary_image_fn=images,
+                             steps_per_call=args.steps_per_call)
+        if debug_mode is None:
+            return ts
+        gstep = int(ts.step)
+        train_seconds += time.time() - t_train
+        train_steps += gstep - step_before
+        # per-layer spectral norms (reference kernel_norm summaries)
+        norms = model.Dis.kernel_norms(ts.params["dis"], ts.net_state["dis"])
+        agent.writer.scalars(gstep, {f"sigma/{k}": v for k, v in norms.items()})
+    agent.writer.flush()
+    if train_steps > 0 and train_seconds > 0:
+        sps = train_steps / train_seconds
+        print(json.dumps({
+            "metric": f"train_steps_per_sec_{agent.filename}",
+            "value": round(sps, 2),
+            "unit": "steps/sec",
+            "vs_baseline": round(sps / baseline_sps, 3),
+        }), flush=True)
+    print("Chunk of code finished.", flush=True)
+    return ts

@@ -12,6 +12,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from mmdgan_torch.models.layers import Layer
+from mmdgan_torch.ops.spectral_norm import spectral_norm_apply
 
 
 class Net:
@@ -64,3 +65,21 @@ class Routine:
             if s:
                 new_state[scope] = s
         return x.float(), new_state
+
+    @torch.no_grad()
+    def kernel_norms(self, params: Dict, state: Dict) -> Dict[str, float]:
+        """The spectral norm sigma of every SN op, one power iteration from
+        its stored vector (the reference's ``kernel_norm`` summaries,
+        layer_func.py:2153-2165; ``mmdgan_tpu/models/network.py:225``). A
+        pure read: the state is not advanced."""
+        out: Dict[str, float] = {}
+        for layer in self.net.layers:
+            scope = layer.layer_scope
+            for op_name, op in layer.ops.items():
+                s = state.get(scope, {}).get(op_name, {})
+                if op.sn_def is None or "sn_x" not in s:
+                    continue
+                sigma, _ = spectral_norm_apply(params[scope][op_name]["kernel"], s["sn_x"],
+                                               op.sn_def)
+                out[f"{scope}/{op_name}"] = float(sigma)
+        return out

@@ -7,7 +7,9 @@
 
 in place on a list of tensors with PyTorch's multi-tensor ``_foreach``
 ops. The slots are dicts keyed like the parameters, so the JAX bridge can
-fill them.
+fill them. ``count`` (optax's int32 ``count``) is a 0-d tensor on the
+parameters' device and the bias corrections are computed there, so the
+update reads no host value and replays correctly from a CUDA graph.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from mmdgan_torch.train.state import tree_leaves, tree_map
 
 @dataclasses.dataclass
 class AdamState:
-    count: int
+    count: torch.Tensor    # int32, 0-d, on the parameters' device
     mu: Dict
     nu: Dict
 
@@ -36,7 +38,9 @@ class Adam:
 
     def init(self, params: Dict) -> AdamState:
         zeros = lambda p: torch.zeros_like(p, requires_grad=False)
-        return AdamState(count=0, mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+        device = tree_leaves(params)[0].device
+        return AdamState(count=torch.zeros((), dtype=torch.int32, device=device),
+                         mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
     @torch.no_grad()
     def update_(self, params: List[torch.Tensor], grads: Sequence[torch.Tensor],
@@ -49,9 +53,10 @@ class Adam:
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-        state.count += 1
-        mu_hat = torch._foreach_div(mu, 1.0 - self.b1 ** state.count)
-        denom = torch._foreach_div(nu, 1.0 - self.b2 ** state.count)
+        state.count.add_(1)
+        t = state.count.float()
+        mu_hat = torch._foreach_div(mu, 1.0 - torch.pow(self.b1, t))
+        denom = torch._foreach_div(nu, 1.0 - torch.pow(self.b2, t))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_addcdiv_(params, mu_hat, denom, value=-self.lr)

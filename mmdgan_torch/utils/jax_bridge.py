@@ -13,7 +13,8 @@ inverse permutations and is the model followed here):
   and bias before an image ``out_reshape`` are permuted;
 - power vectors NHWC -> NCHW; a dense one gets the permutation of the
   side it lives on;
-- Adam ``mu``/``nu`` like their parameters, ``count`` as an int.
+- Adam ``mu``/``nu`` like their parameters, ``count`` as a 0-d int32
+  tensor.
 """
 
 from __future__ import annotations
@@ -105,7 +106,8 @@ def _adam(model: SNGan, opt_state, net_key: str, device) -> AdamState:
     slots = opt_state if hasattr(opt_state, "mu") else next(
         s for s in opt_state if hasattr(s, "mu"))
     conv = lambda tree: _convert(model, {net_key: tree}, _param, device)[net_key]
-    return AdamState(count=int(np.asarray(slots.count)), mu=conv(slots.mu), nu=conv(slots.nu))
+    count = torch.tensor(int(np.asarray(slots.count)), dtype=torch.int32, device=device)
+    return AdamState(count=count, mu=conv(slots.mu), nu=conv(slots.nu))
 
 
 def jax_params_to_torch(model: SNGan, params: Dict, net_state: Dict,

@@ -181,8 +181,9 @@ def test_step_matches_jax_over_three_steps(loss_type):
             for g, w in zip(got, want):
                 np.testing.assert_allclose(g.detach().numpy(), w.numpy(), **STATE_TOL,
                                            err_msg=f"{name} after step {i}")
-        assert ts.opt_state_dis.count == od_state.count == i + 1
-        assert ts.opt_state_gen.count == og_state.count == i + 1
+        assert int(ts.opt_state_dis.count) == int(od_state.count) == i + 1
+        assert int(ts.opt_state_gen.count) == int(og_state.count) == i + 1
+        assert int(ts.step) == i + 1
 
 
 def test_port_imports_no_jax():
@@ -202,7 +203,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 27
 
 
 def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
@@ -235,7 +236,7 @@ def test_full_width_cifar_step_on_cpu(dtype):
     ts, m = multi(ts, {"x": x})
     for k, v in m.items():
         assert v.shape == (2,) and torch.isfinite(v).all(), k
-    assert ts.step == 2 and ts.opt_state_dis.count == 2
+    assert int(ts.step) == 2 and int(ts.opt_state_dis.count) == 2
     assert all(not torch.equal(a, b) for a, b in zip(before, tree_leaves(ts.params)))
     images = model.generate(ts.params, ts.net_state, torch.Generator().manual_seed(0), 3)
     assert images.shape == (3, 32, 32, 3) and images.abs().max() <= 1.0
@@ -263,5 +264,5 @@ def test_gated_update_leaves_the_other_net_untouched(do_dis, do_gen):
         same = all(torch.equal(a, b) for a, b in zip(before[net][0] + before[net][1],
                                                       params + mu))
         assert same != on, net
-        assert getattr(ts, f"opt_state_{net}").count == (2 if on else 1)
+        assert int(getattr(ts, f"opt_state_{net}").count) == (2 if on else 1)
     assert not all(torch.equal(a, b) for a, b in zip(sn_before, snap(ts.net_state)))
