@@ -18,7 +18,11 @@ Phases, each fatal on failure:
    below 0, two launches of each bitwise equal, and the autograd path of
    ``fused_kernel_means`` against autograd of the plain means;
 4. reference: a narrow float32 model, three steps on the card (kernel path)
-   against the same three steps on the CPU (plain path), TF32 off;
+   against the same three steps on the CPU (plain path), after a first
+   'rmb' step that both run (step 0 is degenerate), TF32 off, for
+   'rmb' and for the losses that draw nothing inside the loss ('hinge',
+   'mmd_t', 'cramer', 'mgb', and 'rep_ds' / 'rmb_ds' with their Jacobian
+   scale);
 5. main path: the full-width CIFAR-10 SNGAN at batch 64, bf16, for the
    'rep' and 'rmb' losses, through ``build_multi_step``: K=16 steps per
    CUDA graph launch, and the same windows eager (``capture=False``).
@@ -42,7 +46,17 @@ Phases, each fatal on failure:
    sampling;
 8. CLI: ``python -m mmdgan_torch.experiments.cifar`` host-fed on synthetic
    data and over a seeded tfrecord resident on the card; both exit 0 and
-   print their throughput line.
+   print their throughput line;
+9. losses: every distinct loss of the dispatcher on the full-width model
+   at b64 bf16 through ``build_multi_step`` (K=16): an eager warm-up
+   window, the capture, two timed replays (graphed steps/s); the
+   wrappers' counters grow for the repulsive family only; for it and
+   four others one replay under the profiler (device busy, idle share,
+   activities per step, and the kernel-means launches: 1 forward + 2
+   backward per step for the repulsive family, penalised and scaled, 0
+   for the others); finite metrics, the final losses, the loss state
+   moved for the stateful losses. Then, under deterministic algorithms, graphed and eager
+   'rep_gp' windows (double backward inside the graph) end bitwise equal.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -53,6 +67,7 @@ result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -71,8 +86,9 @@ from mmdgan_torch.data.synthetic import synthetic_image_batches  # noqa: E402
 from mmdgan_torch.data.tfrecord import np_to_tfrecords  # noqa: E402
 from mmdgan_torch.models.sngan import SNGan  # noqa: E402
 from mmdgan_torch.ops import _build, cuda_mmd  # noqa: E402
-from mmdgan_torch.train.optim import multi_opt_config  # noqa: E402
-from mmdgan_torch.train.state import tree_leaves  # noqa: E402
+from mmdgan_torch.ops.losses import LossState  # noqa: E402
+from mmdgan_torch.train.optim import AdamState, multi_opt_config  # noqa: E402
+from mmdgan_torch.train.state import TrainState, loss_state_leaves, tree_leaves, tree_map  # noqa: E402
 from mmdgan_torch.train.step import (  # noqa: E402
     build_device_data_step,
     build_multi_step,
@@ -90,6 +106,14 @@ DATA_WINDOWS = 4                    # phase 7's graphed vs eager device-data win
 # the kernel-means kernels by their names in a profile, and launches per step
 KERNEL_EVENTS = {"kernel_means_fwd": 1, "kernel_means_bwd": 2}
 KERNEL_SHAPES = [(64, 16), (23, 5), (256, 16)]
+# phase 4's losses, and phase 9's: every distinct branch of the dispatcher
+CPU_CHECK_LOSSES = ("rmb", "hinge", "mmd_t", "cramer", "mgb", "rep_ds", "rmb_ds")
+LOSSES = ("logistic", "hinge", "wasserstein", "mmd_g", "mgb", "mmd_t", "cramer", "mmd_g_mix",
+          "sgm", "rand_g", "rgb", "rand_g_mix", "sym_rg_mix", "sym_rg", "instance_noise",
+          "rep", "rep_gp", "rep_ds", "rmb", "rmb_gp", "rmb_ds", "test")
+KERNEL_LOSSES = ("rep", "rep_gp", "rep_ds", "rmb", "rmb_gp", "rmb_ds")
+STATEFUL_LOSSES = ("mmd_g_mix", "sgm", "rand_g_mix", "sym_rg_mix", "instance_noise")
+PROFILED_LOSSES = KERNEL_LOSSES + ("logistic", "mmd_g", "rand_g_mix", "wasserstein")
 VAL_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-8)
 # H100 SXM data sheet: HBM bandwidth, fp32 rate outside the tensor cores
@@ -322,31 +346,38 @@ def narrow_architecture() -> dict:
     return arch
 
 
-def check_against_cpu(dev) -> None:
-    """Phase 4: three float32 steps of a narrow model on the card (the
-    kernel path) and on the CPU (the plain path) from the same init, data
-    and z. TF32 off on both conv and matmul, so the two differ only in
-    summation order: rtol 1e-3 / atol 1e-5 on every step metric, the
-    score means taken as s_x_mean - s_gen_mean."""
+def check_against_cpu(dev, loss_type: str) -> None:
+    """Phase 4: float32 steps of a narrow model on the card (the kernel
+    path) and on the CPU (the plain path) from the same init, data and z:
+    one 'rmb' step, then three compared steps of ``loss_type``. Step 0 is
+    degenerate (the initial power vectors are not normalized, so every D
+    layer shrinks the scores to near-duplicates, where Cramér's gradient
+    is rounding noise that Adam turns into steps of the learning rate); the
+    bounded kernel of 'rmb' takes it well-conditioned, and its step
+    normalizes the power vectors. TF32 off on both conv and matmul, so the
+    two differ only in summation order: rtol 1e-3 / atol 1e-5 on every
+    step metric, the score means taken as s_x_mean - s_gen_mean."""
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         rng = np.random.RandomState(7)
-        x = rng.randn(3, 8, 32, 32, 3).clip(-1, 1).astype(np.float32)
-        z = rng.randn(3, 8, 128).astype(np.float32)
+        x = rng.randn(4, 8, 32, 32, 3).clip(-1, 1).astype(np.float32)
+        z = rng.randn(4, 8, 128).astype(np.float32)
         runs = {}
         for device in ("cpu", dev):
-            model = SNGan(narrow_architecture(), loss_type="rmb",
-                          compute_dtype=torch.float32, device=device)
             opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
-            ts = init_train_state(model, 0, opt_d, opt_g, device=device)
-            one = build_train_step(model, opt_d, opt_g, device=device)
+            steps = [build_train_step(SNGan(narrow_architecture(), loss_type=loss,
+                                            compute_dtype=torch.float32, device=device),
+                                      opt_d, opt_g, device=device)
+                     for loss in ("rmb", loss_type)]
+            ts = init_train_state(SNGan(narrow_architecture(), device=device), 0, opt_d, opt_g,
+                                  device=device)
             metrics = []
-            for k in range(3):
-                ts, m = one(ts, {"x": x[k]}, code_batch={"x": z[k]})
+            for k in range(4):
+                ts, m = steps[min(k, 1)](ts, {"x": x[k]}, code_batch={"x": z[k]})
                 metrics.append({key: v.item() for key, v in m.items()})
-            runs[str(device)] = metrics
-        for k, (mc, mg) in enumerate(zip(runs["cpu"], runs[str(dev)])):
+            runs[str(device)] = metrics[1:]
+        for k, (mc, mg) in enumerate(zip(runs["cpu"], runs[str(dev)]), start=1):
             # the score layer's bias has no true gradient (a common shift
             # of all scores leaves every distance unchanged), so Adam moves
             # it by rounding noise that differs between devices; compare
@@ -357,8 +388,9 @@ def check_against_cpu(dev) -> None:
                 np.testing.assert_allclose(mg[key], mc[key], rtol=1e-3, atol=1e-5,
                                            err_msg=f"step {k} {key}, card vs CPU")
         last = runs[str(dev)][-1]
-        log(f"[reference] narrow f32 rmb, 3 steps card vs CPU agree: step 2 loss_gen "
-            f"{last['loss_gen']:.6f} e_kxx {last['e_kxx']:.6f}")
+        log(f"[reference] narrow f32 {loss_type}, steps 1-3 card vs CPU agree on "
+            f"{len(last)} metrics: step 3 loss_gen {last['loss_gen']:.6f} "
+            f"loss_dis {last['loss_dis']:.6f}")
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
@@ -418,14 +450,16 @@ def run_main_path(dev, loss_type: str, card: str) -> tuple:
     eager = [_profiled_window(eager_multi, ts_eager, batches, f"{loss_type} eager window {i}")
              for i in range(COUNTED_EAGER)]
     graphs = multi.graphs
-    assert (graphs.eager, graphs.captures, graphs.replays) == (1, 1, COUNTED_GRAPHED - 1), (
+    n_graphed, n_eager = (sum(w["windows"] for w in ws) for ws in (graphed, eager))
+    assert (graphs.eager, graphs.captures, graphs.replays) == (1, 1, n_graphed - 1), (
         graphs.eager, graphs.captures, graphs.replays)
     counted = [sum(w[kernel] for w in graphed + eager) for kernel in KERNEL_EVENTS]
-    eager_counted = [graphed[0][kernel] + sum(w[kernel] for w in eager) for kernel in KERNEL_EVENTS]
-    captured = [graphs.captures * per_step * SCAN_K for per_step in KERNEL_EVENTS.values()]
+    # every profiled window holds per_step launches per step (asserted), so
+    # the counters see that many per eager window and per capture
     counters = [forward.launches, backward.launches]
-    assert counters == [e + c for e, c in zip(eager_counted, captured)], (
-        f"{loss_type}: counters {counters}, eager windows {eager_counted}, captured {captured}")
+    want = [per_step * SCAN_K * (graphs.eager + n_eager + graphs.captures)
+            for per_step in KERNEL_EVENTS.values()]
+    assert counters == want, f"{loss_type}: counters {counters}, eager windows + capture {want}"
 
     ts, m, graphed_sps = timed_windows(multi, ts, batches)
     ts_eager, m_eager, eager_sps = timed_windows(eager_multi, ts_eager, batches)
@@ -435,7 +469,7 @@ def run_main_path(dev, loss_type: str, card: str) -> tuple:
                                ("SN/BN state", state0, ts.net_state)):
         same = sum(torch.equal(a, b) for a, b in zip(before, tree_leaves(tree)))
         assert same == 0, f"{loss_type}: {same} {what} tensors unchanged"
-    assert int(ts.step) == (COUNTED_GRAPHED + WARMUP_CALLS + MEASURE_CALLS) * SCAN_K
+    assert int(ts.step) == (n_graphed + WARMUP_CALLS + MEASURE_CALLS) * SCAN_K
     images = model.generate(ts.params, ts.net_state, torch.Generator(dev).manual_seed(0), 8)
     assert images.shape == (8, 32, 32, 3) and torch.isfinite(images).all()
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
@@ -448,9 +482,9 @@ def run_main_path(dev, loss_type: str, card: str) -> tuple:
         f"{graphs.eager} eager window + {graphs.captures} capture + {graphs.replays} replays; "
         f"card: {card}")
     log(f"[profile] {loss_type}: kernel-means launches counted by the profiler in "
-        f"{COUNTED_GRAPHED} graphed windows (1 eager warm-up, {COUNTED_GRAPHED - 1} replayed) "
-        f"and {COUNTED_EAGER} eager ones: {counted[0]} kernel_means_fwd, {counted[1]} "
-        f"kernel_means_bwd in {(COUNTED_GRAPHED + COUNTED_EAGER) * SCAN_K} steps; the wrappers' "
+        f"{len(graphed)} graphed windows (1 eager warm-up, {len(graphed) - 1} replayed) "
+        f"and {len(eager)} eager ones: {counted[0]} kernel_means_fwd, {counted[1]} "
+        f"kernel_means_bwd in {(len(graphed) + len(eager)) * SCAN_K} steps; the wrappers' "
         f"counters over the same windows {counters[0]}/{counters[1]} (eager calls and one "
         "capture)")
     _log_profile(graphed[-1], 1e3 / graphed_sps, f"{loss_type} graphed (a replay)")
@@ -542,13 +576,37 @@ def _replayed_codes(dev) -> list:
     return out
 
 
-def _profiled_window(multi, ts, batches, what: str) -> dict:
+def _profiled_window(multi, ts, batches, what: str, per_step: dict = KERNEL_EVENTS) -> dict:
     """One window (SCAN_K steps) under torch.profiler. Returns the
-    kernel-means launches in it (one forward and two backward per step,
-    asserted) and its device timeline: the busy time per step (the sum
-    of its kernels' times, and the union of their intervals), the span
-    from the first kernel's start to the last one's end, the traced wall
-    time, the device activities, and the time by kernel name."""
+    kernel-means launches in it (``per_step`` per step, by default one
+    forward and two backward, asserted) and its device timeline: the busy
+    time per step (the sum of its kernels' times, and the union of their
+    intervals), the span from the first kernel's start to the last one's
+    end, the traced wall time, the device activities, and the time by
+    kernel name.
+
+    The profiler has been seen to lose one kernel record of a replayed
+    window (15 forward launches counted in 16 steps, the window's other
+    records intact). Every step of a window runs the same code, and of a
+    graph the same captured kernels, so a kernel that does not run is
+    missing from every step; a window that counts short is logged and the
+    next window of the same K-step function is profiled in its place and
+    must count exactly. ``windows`` says how many windows ran."""
+    out = _profile(multi, ts, batches, what)
+    out["windows"] = 1
+    short = {k: out[k] for k, n in per_step.items() if out[k] < n * SCAN_K}
+    if short:
+        log(f"[profile] {what}: the profiler counted {short} in {SCAN_K} steps "
+            f"({out['activities'] * SCAN_K:.0f} device activities); profiling the next window")
+        out = _profile(multi, ts, batches, what)
+        out["windows"] = 2
+    for kernel, n in per_step.items():
+        assert out[kernel] == n * SCAN_K, (
+            f"{what}: {out[kernel]} {kernel} launches in {SCAN_K} steps")
+    return out
+
+
+def _profile(multi, ts, batches, what: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -569,10 +627,8 @@ def _profiled_window(multi, ts, batches, what: str) -> dict:
            "wall": wall_ms / SCAN_K, "activities": len(kernels) / SCAN_K, "by_name": {}}
     for e in kernels:
         out["by_name"][e.name] = out["by_name"].get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    for kernel, per_step in KERNEL_EVENTS.items():
+    for kernel in KERNEL_EVENTS:
         out[kernel] = sum(kernel in e.name for e in kernels)
-        assert out[kernel] == per_step * SCAN_K, (
-            f"{what}: {out[kernel]} {kernel} launches in {SCAN_K} steps")
     return out
 
 
@@ -750,6 +806,110 @@ def check_cli() -> None:
             log(f"[cli] {what}: exit 0 in {time.perf_counter() - start:.1f} s; {lines[-1]}")
 
 
+def copy_state(ts: TrainState) -> TrainState:
+    """A TrainState of new buffers holding ``ts``'s values: a graph
+    captured on one is bound to its own buffers, and the full-width init
+    takes seconds on the host."""
+    clone = lambda t: tree_map(lambda v: v.detach().clone(), t)
+    adam = lambda s: AdamState(count=s.count.clone(), mu=clone(s.mu), nu=clone(s.nu))
+    rng = torch.Generator(ts.rng.device)
+    rng.set_state(ts.rng.get_state())
+    return TrainState(params=clone(ts.params), net_state=clone(ts.net_state),
+                      loss_state=LossState(*(t.clone() for t in loss_state_leaves(ts.loss_state))),
+                      opt_state_dis=adam(ts.opt_state_dis), opt_state_gen=adam(ts.opt_state_gen),
+                      step=ts.step.clone(), rng=rng)
+
+
+def run_losses(dev, card: str) -> list:
+    """Phase 9: every distinct loss of the dispatcher on the full-width
+    model, b64 bf16, K=16, each from the state of seed 0 with its own
+    graphed K-step function: an eager warm-up window, the capture (and its replay),
+    two timed replays. The wrappers' counters, which see eager calls and
+    captures, must grow by 2K forward and 4K backward launches (the eager
+    window and the capture) for the repulsive family and stay put for the
+    other losses. For the repulsive family and a few others one more
+    replay runs under the profiler (about 3 s of the script per window),
+    whose count of kernel-means launches must be 1 forward and 2 backward
+    per step, 0 for the others. Returns the launches the profiler counted
+    in the repulsive family's windows."""
+    forward, backward = cuda_mmd.kernel_means_cuda, cuda_mmd.kernel_means_backward_cuda
+    _, template, _, batches = main_path_setup(dev, "rep")
+    launches = [0, 0]
+    for loss_type in LOSSES:
+        model = SNGan(cifar_architecture(), loss_type=loss_type)
+        opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+        ts = copy_state(template)
+        multi = build_multi_step(model, opt_d, opt_g, SCAN_K)
+        before = (forward.launches, backward.launches)
+        for _ in range(2):
+            ts, m = multi(ts, batches)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(2):
+            ts, m = multi(ts, batches)
+        torch.cuda.synchronize()
+        sps = 2 * SCAN_K / (time.perf_counter() - start)
+        kernel_loss = loss_type in KERNEL_LOSSES
+        grew = (forward.launches - before[0], backward.launches - before[1])
+        assert grew == ((2 * SCAN_K, 4 * SCAN_K) if kernel_loss else (0, 0)), (loss_type, grew)
+        replays = 3
+        line = ""
+        if loss_type in PROFILED_LOSSES:
+            expect = {k: (n if kernel_loss else 0) for k, n in KERNEL_EVENTS.items()}
+            prof = _profiled_window(multi, ts, batches, f"{loss_type} replayed window", expect)
+            replays += prof["windows"]
+            if kernel_loss:
+                launches = [launches[0] + prof["kernel_means_fwd"],
+                            launches[1] + prof["kernel_means_bwd"]]
+            line = (f"; a replay: device busy {prof['union']:.4f} ms/step, idle "
+                    f"{100 * (1 - prof['union'] / prof['span']):.1f}% of the span, "
+                    f"{prof['activities']:.0f} activities/step, kernel means "
+                    f"{prof['kernel_means_fwd'] // SCAN_K}+{prof['kernel_means_bwd'] // SCAN_K} "
+                    "per step")
+        graphs = multi.graphs
+        assert (graphs.eager, graphs.captures, graphs.replays) == (1, 1, replays), (
+            loss_type, graphs.eager, graphs.captures, graphs.replays)
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
+        assert not bad and all(torch.isfinite(t.float()).all() for t in ts.tensors()), (
+            f"{loss_type}: non-finite {bad}")
+        state = {f.name: float(v) for f, v in zip(dataclasses.fields(ts.loss_state),
+                                                  loss_state_leaves(ts.loss_state))}
+        if loss_type in STATEFUL_LOSSES:
+            assert state["loss_average"] != 0.0, f"{loss_type}: the loss state did not move"
+        log(f"[losses] {loss_type}: graphed {sps:.2f} steps/s (2 replays of {SCAN_K} steps "
+            f"after an eager window and the capture), loss_gen {float(m['loss_gen'][-1]):.5f} "
+            f"loss_dis {float(m['loss_dis'][-1]):.5f}, {len(m)} metrics finite"
+            + (f", loss state {state}" if loss_type in STATEFUL_LOSSES else "")
+            + f", counters +{grew[0]}/+{grew[1]}{line}; card: {card}")
+    return launches
+
+
+def check_penalty_determinism(dev) -> None:
+    """Phase 9, under deterministic algorithms: graphed and eager 'rep_gp'
+    windows (4 each from the state of seed 0, z and the penalty's
+    interpolation weights drawn in the windows) end bitwise equal; the
+    graphed one holds a double backward per step."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ends = {}
+        for name, capture in (("graphed", True), ("eager", False)):
+            _, ts, multi, batches = main_path_setup(dev, "rep_gp", capture=capture)
+            for _ in range(4):
+                ts, m = multi(ts, batches)
+            ends[name] = _end_state(ts, m)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    differ = _differ(ends["graphed"], ends["eager"])
+    assert differ == 0, f"rep_gp: {differ} tensors differ, graphed vs eager windows"
+    log(f"[losses] rep_gp b{BATCH} bf16, {4 * SCAN_K} steps under deterministic algorithms: "
+        f"graphed and eager windows end bitwise equal ({len(ends['eager'])} tensors, the "
+        "generator's state included)")
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace, chosen before
     # its first call (phase 6)
@@ -774,15 +934,28 @@ def main() -> int:
     log(f"[build] {cuda_mmd.SOURCE}: {time.perf_counter() - start:.2f} s "
         f"({'loaded from build/' if existed else 'nvcc sm_90a'})")
 
-    kernels = [check_kernel_means(dev), check_kernel_means_backward(dev)]
-    check_against_cpu(dev)
-    runs = {loss: run_main_path(dev, loss, card) for loss in ("rep", "rmb")}
-    for i, kernel in enumerate(kernels):
-        kernel["launches"] = sum(launches[i] for launches, _ in runs.values())
-    check_determinism(dev)
-    check_trainer(dev)
-    check_cli()
+    seconds = {}
 
+    def phase(name, fn):
+        start = time.perf_counter()
+        out = fn()
+        seconds[name] = round(time.perf_counter() - start, 1)
+        return out
+
+    kernels = phase("3 kernels", lambda: [check_kernel_means(dev),
+                                          check_kernel_means_backward(dev)])
+    phase("4 reference", lambda: [check_against_cpu(dev, loss) for loss in CPU_CHECK_LOSSES])
+    runs = phase("5 main", lambda: {loss: run_main_path(dev, loss, card)
+                                    for loss in ("rep", "rmb")})
+    phase("6 determinism", lambda: check_determinism(dev))
+    phase("7 trainer", lambda: check_trainer(dev))
+    phase("8 cli", check_cli)
+    loss_launches = phase("9 losses", lambda: run_losses(dev, card))
+    phase("9 rep_gp determinism", lambda: check_penalty_determinism(dev))
+    for i, kernel in enumerate(kernels):
+        kernel["launches"] = sum(launches[i] for launches, _ in runs.values()) + loss_launches[i]
+
+    log(f"[timing] seconds by phase: {json.dumps(seconds)}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

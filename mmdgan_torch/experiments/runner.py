@@ -8,8 +8,8 @@ the IS/FID scores (A14: a run needs ``--skip-sampling --skip-metrics``),
 ``--use-pallas`` (the TPU kernel; the port always runs its own CUDA
 kernel-means kernel, B1), ``--micro-batches`` (A12), ``--compilation-cache``
 (A16), ``--bf16-moments`` (A7), ``--imbalanced-update`` with
-``--steps-per-call`` > 1 (A12), ``--num-class``/``--sample-same-class``
-(A13/A12) and ``--summary-histograms`` (A11).
+``--steps-per-call`` > 1 (A12) and ``--num-class``/``--sample-same-class``
+(A13/A12). ``--loss`` takes every name of the loss dispatcher.
 """
 
 from __future__ import annotations
@@ -28,7 +28,9 @@ def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=f"Train MMD-GAN ({dataset}) with the PyTorch port — rebuild of "
                     f"the reference my_test_{dataset}.py")
-    p.add_argument("--loss", default="rep", help="loss type: rep | rmb")
+    p.add_argument("--loss", default="rep",
+                   help="loss type, any name of the dispatcher (mmdgan_torch.ops.losses."
+                        "LOSS_TYPES): rep | rmb | rep_gp | rmb_ds | mmd_g | hinge | ...")
     p.add_argument("--lr-dis", type=float, default=5e-4)
     p.add_argument("--lr-gen", type=float, default=2e-4)
     p.add_argument("--end-lr", type=float, default=1e-7,
@@ -83,7 +85,7 @@ def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--use-pallas", action="store_true",
                    help="the TPU's fused Pallas MMD kernel (not ported: ROADMAP B1)")
     p.add_argument("--summary-histograms", action="store_true",
-                   help="hist/* summaries from the step (not ported: ROADMAP A11)")
+                   help="fixed-bin hist/* summaries of distances and scores from the step")
     p.add_argument("--param-hist-step", type=int, default=0,
                    help="write per-variable parameter histograms every N steps (0 = off)")
     p.add_argument("--micro-batches", type=int, default=1, metavar="M",
@@ -112,7 +114,6 @@ def refuse_unported(args) -> None:
         (args.num_class >= 2, "conditional models (--num-class) are not ported yet "
                               "(ROADMAP A13)"),
         (args.sample_same_class, "--sample-same-class is not ported yet (ROADMAP A12)"),
-        (args.summary_histograms, "--summary-histograms is not ported yet (ROADMAP A11)"),
     ]
     for refused, why in unported:
         if refused:
@@ -120,6 +121,16 @@ def refuse_unported(args) -> None:
     if args.sampling != "uniform" and not (args.device_dataset and not args.synthetic_data):
         raise ValueError("--sampling shuffled_epochs only applies to the device-resident "
                          "dataset: pass --device-dataset (without --synthetic-data)")
+
+
+def run_name(loss_type: str, lr_list: Sequence[float], act_k: float,
+             rep_weights: Sequence[float]) -> str:
+    """The run's sub-folder; the repulsive weights enter only for rep and
+    rmb (``experiments/runner.py:152-157``)."""
+    name = "sngan_{}_{:.0e}_{:.0e}_k{:.3g}".format(loss_type, lr_list[0], lr_list[1], act_k)
+    if loss_type in ("rep", "rmb"):
+        name += "_{:.1f}_{:.1f}".format(rep_weights[0], rep_weights[1])
+    return name
 
 
 def run_experiment(args, architecture: dict, filename, num_instance: int,
@@ -147,8 +158,7 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
     lr_list = [args.lr_dis, args.lr_gen]
     rep_weights = [args.rep_w0, args.rep_w1]
     act_k = architecture["discriminator"][-1].get("act_k", 1.0)
-    sub_folder = "sngan_{}_{:.0e}_{:.0e}_k{:.3g}_{:.1f}_{:.1f}".format(
-        loss_type, lr_list[0], lr_list[1], act_k, rep_weights[0], rep_weights[1])
+    sub_folder = run_name(loss_type, lr_list, act_k, rep_weights)
 
     debug_mode = {"false": False, "true": True, "none": None}[args.debug_mode]
     imbalanced = args.imbalanced_update
@@ -162,7 +172,8 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
                   output_dir=cfg.output_dir, param_hist_step=args.param_hist_step)
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     model = SNGan(architecture, loss_type=loss_type, rep_weights=rep_weights,
-                  compute_dtype=compute_dtype, device=device)
+                  compute_dtype=compute_dtype, summary_histograms=args.summary_histograms,
+                  device=device)
 
     step_per_epoch = int(np.floor(num_instance / args.batch_size))
     # file_repeat gcd trick (my_sngan.py:381-397)

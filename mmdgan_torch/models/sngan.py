@@ -1,21 +1,32 @@
-"""SNGan: generator + discriminator + repulsive MMD loss
-(``mmdgan_tpu/models/sngan.py:35-45,69-238,357-444``).
+"""SNGan: generator + discriminator + the GAN losses and their penalties
+(``mmdgan_tpu/models/sngan.py:35-66,69-328,357-444``).
 
 Internally NCHW on ``self.device``. ``generate`` returns NHWC images and
 data batches arrive NHWC (``{"x": [B, H, W, C]}``); ``to_nchw`` is the one
 place the layout changes. ``gen_stage`` and ``dis_stage`` are the two
 halves of the train step and work on NCHW tensors.
+
+The penalties (WGAN-GP, the MMD witness penalty, the scaled-MMD Jacobian
+scale) score their inputs with ``train=False`` and take their gradient
+with ``create_graph=True``: the step differentiates through it again
+(double backward through the spectral norm, the convs and the lrelu).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from mmdgan_torch import DeviceLike, resolve_device
 from mmdgan_torch.models.network import Net, Routine
+from mmdgan_torch.ops.distance import get_squared_dist
+from mmdgan_torch.ops.kernels import witness_g, witness_mix_g, witness_mix_t
 from mmdgan_torch.ops.losses import GANLoss, LossState
+
+GP_LOSSES = ("rep_gp", "rmb_gp", "fixed_g_gp", "fixed_t_gp")
+DS_LOSSES = ("rep_ds", "rmb_ds")
 
 
 def decode_image_batch(data_batch: Dict) -> Dict:
@@ -33,22 +44,61 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def _input_grad(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """d sum(out) / d x, itself differentiable, one row per sample."""
+    (g,) = torch.autograd.grad(out.sum(), x, create_graph=True)
+    return g.reshape(g.shape[0], -1)
+
+
+def _norm_penalty(g: torch.Tensor) -> torch.Tensor:
+    """E (||g|| - 1)^2 with ||g|| = sqrt(sum g^2 + 1e-12): the eps keeps
+    the second-order step finite where a gradient is 0."""
+    norm = torch.sqrt(torch.sum(torch.square(g), dim=1) + 1e-12)
+    return torch.mean(torch.square(norm - 1.0))
+
+
+def _differentiable(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if the graph already reaches it, else a leaf that requires grad."""
+    return x if x.requires_grad else x.detach().requires_grad_(True)
+
+
+def jacobian_squared_frobenius_norm(fwd: Callable, x: torch.Tensor) -> torch.Tensor:
+    """[N]: sum_j ||d fwd(x)_{n,j} / d x_n||^2 per sample, one
+    vector-Jacobian product per output dimension, each differentiable."""
+    x = _differentiable(x)
+    y = fwd(x)
+    total = 0.0
+    for j in range(y.shape[-1]):
+        (g,) = torch.autograd.grad(y[:, j].sum(), x, create_graph=True, retain_graph=True)
+        total = total + torch.sum(torch.square(g.reshape(g.shape[0], -1)), dim=1)
+    return total
+
+
 class SNGan:
     def __init__(
         self,
         architecture: dict,
         loss_type: str = "rep",
         rep_weights: Sequence[float] = (0.0, -1.0),
+        penalty_weight: float = 0.1,
+        gp_weight: float = 10.0,
         compute_dtype: torch.dtype = torch.bfloat16,
         use_fused_kernel: bool = True,
+        sigma: Optional[Sequence[float]] = None,
+        summary_histograms: bool = False,
         do_summary: bool = True,
         device: DeviceLike = None,
     ):
         """:param architecture: dict with 'input' [(C, H, W)], 'code'
         [(code_size, act)], 'generator' and 'discriminator' layer lists, in
         the reference format (``mmdgan_torch.architectures``).
+        :param penalty_weight: the Jacobian scale's weight (``*_ds``)
+        :param gp_weight: the gradient penalties' weight (``*_gp``,
+            ``wasserstein``)
+        :param sigma: the Gaussian mixture's sigmas (``GANLoss.sigma``)
+        :param summary_histograms: ``hist/*`` counts in the step metrics
         :param device: ``cuda`` by default; raises without a GPU unless
-        ``"cpu"`` is passed."""
+            ``"cpu"`` is passed."""
         self.device = resolve_device(device)
         self.architecture = architecture
         self.loss_type = loss_type
@@ -56,9 +106,13 @@ class SNGan:
         self.channels, self.height, self.width = architecture["input"][0]
         self.code_size = architecture["code"][0][0]
         self.score_size = architecture["discriminator"][-1]["out"]
+        self.penalty_weight = penalty_weight
+        self.gp_weight = gp_weight
         self.compute_dtype = compute_dtype
         self.loss_hp = GANLoss(repulsive_weights=list(rep_weights),
-                               use_fused_kernel=use_fused_kernel)
+                               use_fused_kernel=use_fused_kernel,
+                               summary_histograms=summary_histograms,
+                               **({"sigma": tuple(sigma)} if sigma is not None else {}))
         self.Gen = Routine(Net(architecture["generator"], (self.code_size,),
                                net_name="gen", compute_dtype=compute_dtype))
         self.Dis = Routine(Net(architecture["discriminator"],
@@ -102,6 +156,62 @@ class SNGan:
         x = x.permute(0, 2, 3, 1)
         return torch.clamp(x, -1.0, 1.0) if clip else x
 
+    def discriminate(self, params: Dict, state: Dict, batch, train: bool = False) -> torch.Tensor:
+        """Scores [N, d] of a batch: a {'x': ...} dict or an NHWC image
+        array, uint8 or float."""
+        x = batch["x"] if isinstance(batch, dict) else batch
+        x = to_nchw(decode_image_batch({"x": torch.as_tensor(x, device=self.device)})["x"])
+        out, _ = self.Dis.apply(params["dis"], state["dis"], x, train=train)
+        return out
+
+    # ------------------------------------------------------------------
+    # gradient penalties (my_sngan.py:152-240), on NCHW images
+    # ------------------------------------------------------------------
+    def _dis_fwd(self, params_d: Dict, state: Dict, x: torch.Tensor) -> torch.Tensor:
+        out, _ = self.Dis.apply(params_d, state["dis"], x, train=False)
+        return out
+
+    def _interpolates(self, x, x_gen, generator, uni):
+        if uni is None:
+            uni = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=x.device)
+        return _differentiable(x * uni + x_gen * (1.0 - uni))
+
+    def gradient_penalty(self, params_d: Dict, state: Dict, x: torch.Tensor,
+                         x_gen: torch.Tensor, generator: Optional[torch.Generator] = None,
+                         uni: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """WGAN-GP: E (||d D(x_hat) / d x_hat|| - 1)^2 over interpolates
+        with weights ``uni`` [N, 1, 1, 1] (drawn from ``generator`` when
+        not given)."""
+        x_hat = self._interpolates(x, x_gen, generator, uni)
+        return _norm_penalty(_input_grad(self._dis_fwd(params_d, state, x_hat), x_hat))
+
+    def mmd_gradient_penalty(self, params_d: Dict, state: Dict, x: torch.Tensor,
+                             x_gen: torch.Tensor, s_x: torch.Tensor, s_gen: torch.Tensor,
+                             mode: str = "rep_gp", generator: Optional[torch.Generator] = None,
+                             uni: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The MMD witness gradient penalty at interpolates, the witness
+        taken against the step's scores ``s_x`` and ``s_gen``."""
+        x_hat = self._interpolates(x, x_gen, generator, uni)
+        s_hat = self._dis_fwd(params_d, state, x_hat)
+        dist_zx = get_squared_dist(s_hat, s_x, mode="xy")
+        dist_zy = get_squared_dist(s_hat, s_gen, mode="xy")
+        if mode == "fixed_g_gp":
+            wit = witness_mix_g(dist_zx, dist_zy,
+                                sigma=[1.0, np.sqrt(2.0), 2.0, np.sqrt(8.0), 4.0])
+        elif mode == "fixed_t_gp":
+            wit = witness_mix_t(dist_zx, dist_zy, alpha=[0.25, 0.5, 0.9, 2.0, 25.0], beta=2.0)
+        elif mode in ("rep_gp", "rmb_gp"):
+            wit = witness_g(dist_zx, dist_zy, sigma=1.0)
+        else:
+            raise NotImplementedError(f"gradient penalty: {mode} not implemented")
+        return _norm_penalty(_input_grad(wit, x_hat))
+
+    def mmd_gradient_scale(self, params_d: Dict, state: Dict, x: torch.Tensor) -> torch.Tensor:
+        """The scaled-MMD discriminator scale 1 / (w E||J||_F^2 + 1)."""
+        jaco = jacobian_squared_frobenius_norm(
+            lambda xx: self._dis_fwd(params_d, state, xx), x)
+        return 1.0 / (self.penalty_weight * torch.mean(jaco) + 1.0)
+
     def gen_stage(self, params_gen: Dict, state: Dict, batch_size: int,
                   generator: Optional[torch.Generator] = None,
                   code_batch: Optional[Dict] = None, train: bool = True):
@@ -113,16 +223,31 @@ class SNGan:
         return gen_x, gen_state, code_batch
 
     def dis_stage(self, params_dis: Dict, gen_x: torch.Tensor, state: Dict,
-                  loss_state: LossState, x_real: torch.Tensor):
+                  loss_state: LossState, x_real: torch.Tensor,
+                  generator: Optional[torch.Generator] = None):
         """Discriminator + loss half: ONE D pass on concat(real, fake),
-        real first. NCHW inputs. Returns (loss_gen, loss_dis, dis_state,
-        new_loss_state, aux)."""
+        real first, then the penalty or scale, then the loss. NCHW inputs.
+        The loss's draws, then the penalty's, come from ``generator`` in
+        that order. Returns (loss_gen, loss_dis, dis_state, new_loss_state,
+        aux)."""
         batch_size = x_real.shape[0]
         dis_in = torch.cat([x_real, gen_x], dim=0)
         scores, dis_state = self.Dis.apply(params_dis, state["dis"], dis_in, train=True)
         s_x, s_gen = scores[:batch_size], scores[batch_size:]
+        draws = self.loss_hp.draw(self.loss_type, s_gen, generator)
+        dis_penalty = dis_scale = None
+        if self.loss_type in GP_LOSSES:
+            dis_penalty = self.gp_weight * self.mmd_gradient_penalty(
+                params_dis, state, x_real, gen_x, s_x, s_gen, mode=self.loss_type,
+                generator=generator)
+        elif self.loss_type == "wasserstein":
+            dis_penalty = self.gp_weight * self.gradient_penalty(
+                params_dis, state, x_real, gen_x, generator=generator)
+        elif self.loss_type in DS_LOSSES:
+            dis_scale = self.mmd_gradient_scale(params_dis, state, x_real)
         loss_gen, loss_dis, new_loss_state, loss_aux = self.loss_hp.apply(
-            s_gen, s_x, self.loss_type, batch_size=batch_size, state=loss_state)
+            s_gen, s_x, self.loss_type, batch_size=batch_size, d=self.score_size,
+            dis_penalty=dis_penalty, dis_scale=dis_scale, state=loss_state, draws=draws)
         aux = {
             "s_x_mean": torch.mean(s_x),
             "s_gen_mean": torch.mean(s_gen),

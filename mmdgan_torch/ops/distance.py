@@ -1,12 +1,19 @@
-"""Pairwise squared distances between score rows (``mmdgan_tpu/ops/distance.py:25-93``).
+"""Pairwise squared distances between score rows, and the slices of a
+combined distance matrix (``mmdgan_tpu/ops/distance.py:25-93,184-224``).
 
 Gram form ``max(d_i - 2 G_ij + d_j, 0)``. The Gram products must run in
 full fp32, as the reference's HIGHEST-precision matmuls do: ``torch.matmul``
 does so on the card while ``torch.backends.cuda.matmul.allow_tf32`` is
 False, which is PyTorch's default.
+
+The mixed slices of the mix-coin losses keep static shapes and never ask
+the host what a mask holds (no ``t[mask]``, no ``nonzero``), so a CUDA
+graph can capture them.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,22 +26,83 @@ def _dist_from_parts(dx: torch.Tensor, xyt: torch.Tensor, dy: torch.Tensor) -> t
     return torch.clamp(dx[:, None] - 2.0 * xyt + dy[None, :], min=0.0)
 
 
-def get_squared_dist(x: torch.Tensor, y: torch.Tensor, mode: str = "xxxyyy"):
+def get_squared_dist(x: torch.Tensor, y: Optional[torch.Tensor] = None,
+                     scale: Optional[torch.Tensor] = None, z_score: bool = False,
+                     mode: str = "xxxyyy"):
     """Pairwise squared euclidean distances between rows of x [m, d] and
-    y [n, d]. ``mode='xxxyyy'`` returns (dist_xx, dist_xy, dist_yy);
-    ``mode='xy'`` returns dist_xy."""
+    y [n, d].
+
+    :param scale: optional [d] precision vector; d(x, y) uses x * scale . y
+    :param z_score: subtract the mean of concat(x, y) first
+    :param mode: 'xx' -> dist_xx (also whenever y is None); 'xy' -> dist_xy;
+        'xxxy' -> (dist_xx, dist_xy); 'xxxyyy' -> (dist_xx, dist_xy, dist_yy)
+    """
     if x.dim() != 2:
         raise ValueError("get_squared_dist: input must be a matrix.")
-    if mode == "xxxyyy":
-        xxt = _gram(x, x)
-        yyt = _gram(y, y)
+    if y is None:
+        mode = "xx"
+    if z_score:
+        if y is None:
+            x = x - torch.mean(x, dim=0, keepdim=True)
+        else:
+            mu = torch.mean(torch.cat([x, y], dim=0), dim=0, keepdim=True)
+            x, y = x - mu, y - mu
+    xs = x if scale is None else x * scale
+    ys = y if y is None or scale is None else y * scale
+
+    if mode in ("xx", "xxxy", "xxxyyy"):
+        xxt = _gram(xs, x)
         dx = torch.diagonal(xxt)
+        dist_xx = _dist_from_parts(dx, xxt, dx)
+        if mode == "xx":
+            return dist_xx
+        xyt = _gram(xs, y)
+        if mode == "xxxy":
+            # dy without forming yyt (math_func.py:812-824)
+            return dist_xx, _dist_from_parts(dx, xyt, torch.sum(ys * y, dim=1))
+        yyt = _gram(ys, y)
         dy = torch.diagonal(yyt)
-        return (_dist_from_parts(dx, xxt, dx),
-                _dist_from_parts(dx, _gram(x, y), dy),
-                _dist_from_parts(dy, yyt, dy))
+        return dist_xx, _dist_from_parts(dx, xyt, dy), _dist_from_parts(dy, yyt, dy)
     if mode == "xy":
-        dx = torch.sum(x * x, dim=1)
-        dy = torch.sum(y * y, dim=1)
-        return _dist_from_parts(dx, _gram(x, y), dy)
+        dx = torch.sum(xs * x, dim=1)
+        dy = torch.sum(ys * y, dim=1)
+        return _dist_from_parts(dx, _gram(xs, y), dy)
     raise ValueError(f"Mode {mode} not supported")
+
+
+def _true_first(mask: torch.Tensor) -> torch.Tensor:
+    """``argsort(~mask, stable=True)``: the positions where ``mask`` is True
+    in order, then those where it is False in order. Each position's slot
+    comes from a cumulative sum, and the slots are inverted by an n x n
+    comparison: no sort, no scatter, no host read."""
+    m = mask.long()
+    slot = torch.where(mask, torch.cumsum(m, 0) - 1, m.sum() + torch.cumsum(1 - m, 0) - 1)
+    pos = torch.arange(mask.shape[0], device=mask.device)
+    return ((slot[None, :] == pos[:, None]).long() * pos[None, :]).sum(1)
+
+
+def mat_slice(mat: torch.Tensor, row_mask: torch.Tensor,
+              col_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The square sub-matrix of ``mat`` on the first ``k = n // 2`` rows
+    (and columns) where the masks are True, as the JAX package takes it
+    (``argsort(~mask, stable=True)[:k]``). The masks of
+    :func:`slice_pairwise_distance` hold exactly k True entries."""
+    k = mat.shape[0] // 2
+    rows = _true_first(row_mask)[:k]
+    cols = rows if col_mask is None else _true_first(col_mask)[:k]
+    return mat.index_select(0, rows).index_select(1, cols)
+
+
+def slice_pairwise_distance(pair_dist: torch.Tensor, batch_size: Optional[int] = None,
+                            indices: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A 2B x 2B pairwise-distance matrix as its (g1, g1g2, g2) blocks. With
+    ``indices`` (a [B] boolean vector) the groups are mixed: group 1 takes
+    row i of the first half where indices[i], else row i of the second."""
+    if indices is None:
+        b = batch_size
+        return pair_dist[:b, :b], pair_dist[:b, b:], pair_dist[b:, b:]
+    group_1 = torch.cat([indices, ~indices], dim=0)
+    group_2 = torch.cat([~indices, indices], dim=0)
+    return (mat_slice(pair_dist, group_1), mat_slice(pair_dist, group_1, group_2),
+            mat_slice(pair_dist, group_2))

@@ -47,6 +47,13 @@ def init_train_state(model: SNGan, seed: int, opt_dis: Adam, opt_gen: Adam,
         rng=torch.Generator(dev).manual_seed(int(seed) + 1))
 
 
+def _grads(loss: torch.Tensor, leaves, retain_graph: bool = False):
+    """d loss / d leaves; zeros for a constant loss (the 'test' loss)."""
+    if not loss.requires_grad:
+        return [torch.zeros_like(p) for p in leaves]
+    return torch.autograd.grad(loss, leaves, retain_graph=retain_graph)
+
+
 def _global_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
 
@@ -56,7 +63,10 @@ def build_train_step(model: SNGan, opt_dis: Adam, opt_gen: Adam,
     """Returns ``train_step(ts, data_batch, do_dis=True, do_gen=True,
     code_batch=None) -> (ts, metrics)``. ``data_batch['x']`` is NHWC
     ([B, H, W, C], float in [-1, 1] or uint8); ``code_batch={'x': z}``
-    replaces the z draw, as ``gen_stage(code_batch=...)`` does in JAX."""
+    replaces the z draw, as ``gen_stage(code_batch=...)`` does in JAX. The
+    step draws from the state's one generator in a fixed order: z, then
+    the loss's draws, then the penalty's interpolation weights (JAX splits
+    its key into ``rng_code``, ``rng_loss`` and ``rng_gp``)."""
     dev = check_device(model.device, device)
 
     def train_step(ts: TrainState, data_batch: Dict, do_dis: bool = True,
@@ -66,11 +76,11 @@ def build_train_step(model: SNGan, opt_dis: Adam, opt_gen: Adam,
         gen_x, gen_state, _ = model.gen_stage(
             ts.params["gen"], ts.net_state, x.shape[0], ts.rng, code_batch)
         loss_gen, loss_dis, dis_state, new_loss_state, aux = model.dis_stage(
-            ts.params["dis"], gen_x, ts.net_state, ts.loss_state, x)
+            ts.params["dis"], gen_x, ts.net_state, ts.loss_state, x, generator=ts.rng)
         dis_leaves = tree_leaves(ts.params["dis"])
         gen_leaves = tree_leaves(ts.params["gen"])
-        grads_dis = torch.autograd.grad(loss_dis, dis_leaves, retain_graph=True)
-        grads_gen = torch.autograd.grad(loss_gen, gen_leaves)
+        grads_dis = _grads(loss_dis, dis_leaves, retain_graph=True)
+        grads_gen = _grads(loss_gen, gen_leaves)
         if do_dis:
             opt_dis.update_(dis_leaves, grads_dis, ts.opt_state_dis)
         if do_gen:
@@ -154,9 +164,8 @@ class StepGraphs:
         with torch.cuda.stream(self._stream):
             out = body()
         current.wait_stream(self._stream)
-        for t in out:
-            if isinstance(t, torch.Tensor):
-                t.record_stream(current)
+        for t in out[0]:
+            t.record_stream(current)
         self.eager += 1
         return out
 
@@ -171,7 +180,8 @@ def _graphed(dev: torch.device, capture: Optional[bool]) -> bool:
 
 def _window(step: Callable, ts: TrainState, num_steps: int, batch_at: Callable,
             codes: Optional[torch.Tensor], do_dis: bool, do_gen: bool):
-    """K steps; returns ([n_metrics, K] stacked metrics, their keys)."""
+    """K steps; returns the [n_scalars, K] stacked scalar metrics, then one
+    [K, nbins] stack per ``hist/*`` metric, then the keys of both."""
     per_step = []
     for k in range(num_steps):
         if codes is None:
@@ -179,13 +189,18 @@ def _window(step: Callable, ts: TrainState, num_steps: int, batch_at: Callable,
         else:
             ts, m = step(ts, batch_at(k), do_dis, do_gen, {"x": codes[k]})
         per_step.append(m)
-    keys = tuple(per_step[0])
-    return torch.stack([torch.stack([m[key] for m in per_step]) for key in keys]), keys
+    keys = tuple(k for k, v in per_step[0].items() if v.dim() == 0)
+    hist_keys = tuple(k for k, v in per_step[0].items() if v.dim() > 0)
+    stack = lambda key: torch.stack([m[key] for m in per_step])
+    return ((torch.stack([stack(key) for key in keys]),) + tuple(stack(k) for k in hist_keys),
+            keys, hist_keys)
 
 
 def _as_metrics(out, clone: bool) -> Dict[str, torch.Tensor]:
-    stacked, keys = out
-    return dict(zip(keys, (stacked.clone() if clone else stacked).unbind(0)))
+    tensors, keys, hist_keys = out
+    if clone:
+        tensors = [t.clone() for t in tensors]
+    return {**dict(zip(keys, tensors[0].unbind(0))), **dict(zip(hist_keys, tensors[1:]))}
 
 
 def _stacked(name: str, value, num_steps: int, dev: torch.device,
@@ -206,8 +221,9 @@ def _window_runner(step: Callable, num_steps: int, capture: Optional[bool]) -> C
     from tensors that keep their buffers across calls (``bound``, whose
     change drops the graphs) or from the state; ``key`` names the batch
     source's shapes; ``generators`` are drawn from by ``batch_at``. The
-    state's own generator is registered unless ``code_batches`` replace
-    its draws; those are staged into a static buffer per key."""
+    state's own generator is always registered: it draws z unless
+    ``code_batches`` replace them (staged into a static buffer per key),
+    and the losses' and penalties' draws in any case."""
     graphs = StepGraphs()
     codes: Dict = {}
 
@@ -227,7 +243,7 @@ def _window_runner(step: Callable, num_steps: int, capture: Optional[bool]) -> C
                 codes[key] = torch.empty_like(zs)
             z_buf = codes[key]
             z_buf.copy_(zs, non_blocking=True)
-        out = graphs.run(key, ts.tensors() + bound, ([ts.rng] if zs is None else []) + generators,
+        out = graphs.run(key, ts.tensors() + bound, [ts.rng] + generators,
                          lambda: _window(step, ts, num_steps, batch_at, z_buf, do_dis, do_gen))
         return ts, _as_metrics(out, True)
 

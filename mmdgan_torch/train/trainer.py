@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from mmdgan_torch.data.prefetch import prefetch
+from mmdgan_torch.ops.losses import HIST_RANGES
 from mmdgan_torch.train.state import TrainState
 from mmdgan_torch.train.step import EpochPermuter, build_device_data_step, graph_steps
 from mmdgan_torch.utils import checkpoint
@@ -99,10 +100,12 @@ def split_host_metrics(metrics_host: Dict, take_last: bool):
 
 
 def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """One device-to-host copy of every metric (a sync point)."""
-    keys = list(metrics)
-    stacked = torch.stack([metrics[k].float() for k in keys]).cpu().numpy()
-    return dict(zip(keys, stacked))
+    """The metrics on the host (a sync point): one copy of the scalars,
+    one per ``hist/*`` stack."""
+    keys = [k for k in metrics if not k.startswith("hist/")]
+    out = dict(zip(keys, torch.stack([metrics[k].float() for k in keys]).cpu().numpy()))
+    out.update({k: v.cpu().numpy() for k, v in metrics.items() if k.startswith("hist/")})
+    return out
 
 
 class Agent:
@@ -154,11 +157,11 @@ class Agent:
     def _write_query(self, gstep: int, scalars: Dict, hists: Dict,
                      ts: Optional[TrainState] = None):
         """One query step's summaries: scalars, the step's ``hist/*``
-        histograms over [0, 1], and (every ``param_hist_step``)
-        per-variable parameter histograms."""
+        histograms over their fixed ranges (``HIST_RANGES``), and (every
+        ``param_hist_step``) per-variable parameter histograms."""
         self.writer.scalars(gstep, scalars)
         for k, counts in hists.items():
-            self.writer.histogram(gstep, k, counts, 0.0, 1.0)
+            self.writer.histogram(gstep, k, counts, *HIST_RANGES[k])
         if (ts is not None and self.param_hist_step > 0
                 and (self._last_param_hist is None
                      or gstep - self._last_param_hist >= self.param_hist_step)):

@@ -14,11 +14,14 @@ inverse permutations and is the model followed here):
 - power vectors NHWC -> NCHW; a dense one gets the permutation of the
   side it lives on;
 - Adam ``mu``/``nu`` like their parameters, ``count`` as a 0-d int32
-  tensor.
+  tensor;
+- the ``LossState`` (moving loss average, mix probability, instance-noise
+  sigma) as 0-d float32 tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -26,6 +29,7 @@ import torch
 
 from mmdgan_torch.models.layers import Layer
 from mmdgan_torch.models.sngan import SNGan
+from mmdgan_torch.ops.losses import LossState
 from mmdgan_torch.ops.spectral_norm import use_u
 from mmdgan_torch.train.optim import AdamState
 
@@ -111,17 +115,24 @@ def _adam(model: SNGan, opt_state, net_key: str, device) -> AdamState:
 
 
 def jax_params_to_torch(model: SNGan, params: Dict, net_state: Dict,
-                        opt_states: Optional[Tuple] = None, device="cpu"):
+                        opt_states: Optional[Tuple] = None, device="cpu",
+                        loss_state=None):
     """Convert numpy trees of the JAX package into the port's layout.
 
     :param model: the port's SNGan of the same architecture
     :param opt_states: optional ``(opt_state_dis, opt_state_gen)`` of optax adam
+    :param loss_state: optional JAX ``LossState`` (any object with its
+        three fields)
     :returns: ``(params, net_state)``, plus ``(AdamState dis, AdamState gen)``
-        when ``opt_states`` is given
+        when ``opt_states`` is given, plus the port's ``LossState`` when
+        ``loss_state`` is given
     """
-    p = _convert(model, params, _param, device)
-    s = _convert(model, net_state, _state, device)
-    if opt_states is None:
-        return p, s
-    return p, s, (_adam(model, opt_states[0], "dis", device),
-                  _adam(model, opt_states[1], "gen", device))
+    out = (_convert(model, params, _param, device), _convert(model, net_state, _state, device))
+    if opt_states is not None:
+        out += ((_adam(model, opt_states[0], "dis", device),
+                 _adam(model, opt_states[1], "gen", device)),)
+    if loss_state is not None:
+        out += (LossState(**{f.name: torch.tensor(np.asarray(getattr(loss_state, f.name)),
+                                                  dtype=torch.float32, device=device)
+                             for f in dataclasses.fields(LossState)}),)
+    return out

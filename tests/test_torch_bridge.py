@@ -123,3 +123,21 @@ def test_layer_matches_jax(models, case):
     for op_name, leaves in want.items():
         for k, v in leaves.items():
             np.testing.assert_allclose(new_state[op_name][k].numpy(), v.numpy(), **TOL)
+
+
+def test_loss_state_bridged(models):
+    """The JAX ``LossState`` comes across as the port's, beside the
+    parameters, the state and the Adam slots."""
+    from mmdgan_tpu.ops.losses import LossState as JaxLossState
+    from mmdgan_torch.ops.losses import LossState
+
+    _, params, state, model, _, _ = models
+    jls = JaxLossState(loss_average=jnp.float32(0.25), mix_prob=jnp.float32(0.125),
+                       ins_sigma=jnp.float32(0.5))
+    *_, ls = jax_params_to_torch(model, params, state, loss_state=jax.device_get(jls))
+    assert isinstance(ls, LossState)
+    for name, want in (("loss_average", 0.25), ("mix_prob", 0.125), ("ins_sigma", 0.5)):
+        v = getattr(ls, name)
+        assert v.dtype == torch.float32 and v.shape == () and v.item() == want
+    out = jax_params_to_torch(model, params, state)
+    assert len(out) == 2

@@ -411,6 +411,38 @@ def test_cifar_cli_debug_run_on_cpu(tmp_path):
     assert any("sigma/dis/l8_s/kernel" in r for r in recs)
 
 
+def test_run_name_drops_the_repulsive_weights_for_other_losses():
+    """``experiments/runner.py:152-157``: rep and rmb runs carry the
+    repulsive weights in their folder name, other losses do not."""
+    from mmdgan_torch.experiments.runner import run_name
+    lr, k = [5e-4, 2e-4], float(np.power(64.0, 0.125))
+    assert run_name("rep", lr, k, [0.0, -1.0]) == "sngan_rep_5e-04_2e-04_k1.68_0.0_-1.0"
+    assert run_name("rmb", lr, k, [0.5, -0.5]) == "sngan_rmb_5e-04_2e-04_k1.68_0.5_-0.5"
+    assert run_name("rep_gp", lr, k, [0.0, -1.0]) == "sngan_rep_gp_5e-04_2e-04_k1.68"
+    assert run_name("mmd_g", [1e-4, 1e-4], 1.0, [0.0, -1.0]) == "sngan_mmd_g_1e-04_1e-04_k1"
+
+
+def test_cifar_cli_other_loss_with_histograms(tmp_path):
+    """The CLI takes a stateful loss and ``--summary-histograms``: two graphed
+    (here eager) steps of the full cifar model at B=4 on the CPU; the log
+    holds the loss state and the hist/* counts over their fixed ranges."""
+    cifar_main(["--device", "cpu", "--synthetic-data", "--debug-mode", "true",
+                "--debug-step", "2", "--steps-per-call", "2", "--query-step", "2",
+                "--compute-dtype", "float32", "--skip-sampling", "--skip-metrics",
+                "--chunks", "1", "--batch-size", "4", "--out-dir", str(tmp_path),
+                "--loss", "mmd_g_mix", "--summary-histograms"])
+    run = "sngan_mmd_g_mix_5e-04_2e-04_k1.68"
+    assert os.path.isfile(tmp_path / "cifar_ckpt" / run / "ckpt-2.pt")
+    recs = [json.loads(ln) for ln in open(tmp_path / "cifar_log" / run / "metrics.jsonl")]
+    assert any(r.get("step") == 2 and "state/loss_average" in r and "mix/sigma_0/e_kxx" in r
+               for r in recs)
+    hists = {r["hist"]: r for r in recs if r.get("hist", "").startswith("hist/")}
+    assert set(hists) == {"hist/d_xx", "hist/d_xy", "hist/d_yy", "hist/score_gen",
+                          "hist/score_x"}
+    assert (hists["hist/d_xy"]["lo"], hists["hist/d_xy"]["hi"]) == (0.0, 16.0)
+    assert sum(hists["hist/d_xy"]["counts"]) == 16 and sum(hists["hist/score_x"]["counts"]) == 64
+
+
 @pytest.mark.parametrize("flags,item", [
     ([], "A14"),
     (["--skip-sampling", "--skip-metrics", "--use-pallas"], "B1"),
