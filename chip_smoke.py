@@ -45,8 +45,8 @@ Phases, each fatal on failure:
    device-data windows, shuffled and uniform, all bitwise; uniform
    sampling;
 8. CLI: ``python -m mmdgan_torch.experiments.cifar`` host-fed on synthetic
-   data and over a seeded tfrecord resident on the card; both exit 0 and
-   print their throughput line;
+   data and over a seeded tfrecord resident on the card, side by side;
+   both exit 0 and print their throughput line;
 9. losses: every distinct loss of the dispatcher on the full-width model
    at b64 bf16 through ``build_multi_step`` (K=16): an eager warm-up
    window, the capture, two timed replays (graphed steps/s); the
@@ -56,7 +56,26 @@ Phases, each fatal on failure:
    backward per step for the repulsive family, penalised and scaled, 0
    for the others); finite metrics, the final losses, the loss state
    moved for the stateful losses. Then, under deterministic algorithms, graphed and eager
-   'rep_gp' windows (double backward inside the graph) end bitwise equal.
+   'rep_gp' windows (double backward inside the graph) end bitwise equal;
+10. families, accumulation and imbalanced windows:
+   - STL-10 48x48 and CelebA 64x64 at full width, rep b64 bf16, graphed
+     K=16 windows on a noise feed: steps/s over 128 timed steps, one
+     profiled replay (device busy, idle share, activities, 1 + 2
+     kernel-means launches per step), e_kxx;
+   - hd512 at full width, rep b64 bf16, ``build_device_data_step`` over a
+     seeded 256 x 512 x 512 x 3 uint8 dataset on the card, at
+     micro_batches 1 and 8: steps/s, peak memory, 1 + 2 kernel-means
+     launches per optimizer step in a profiled replay;
+   - a narrow f32 accumulated step (M=4, rep and rmb_gp) on the card
+     against the CPU; on a BN-free narrow model the accumulated step
+     against the fused one; under deterministic algorithms graphed and
+     eager windows bitwise equal for the accumulated step (M=4) and for
+     a [1, 5] imbalanced window, whose Adam counts advance by 16 (D) and
+     by the steps divisible by 5 (G) per window;
+   - the stl, celeba and lsun CLIs on synthetic data, celeba over a
+     seeded 64x64 tfrecord on the card with ``--micro-batches 4``, and
+     cifar with ``--imbalanced-update 1,5 --steps-per-call 16``, in five
+     subprocesses side by side.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -68,6 +87,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -81,7 +101,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from mmdgan_torch.architectures import cifar_architecture  # noqa: E402
+from mmdgan_torch.architectures import (  # noqa: E402
+    celeba_architecture,
+    cifar_architecture,
+    hd_architecture,
+    stl_architecture,
+)
 from mmdgan_torch.data.synthetic import synthetic_image_batches  # noqa: E402
 from mmdgan_torch.data.tfrecord import np_to_tfrecords  # noqa: E402
 from mmdgan_torch.models.sngan import SNGan  # noqa: E402
@@ -91,6 +116,8 @@ from mmdgan_torch.train.optim import AdamState, multi_opt_config  # noqa: E402
 from mmdgan_torch.train.state import TrainState, loss_state_leaves, tree_leaves, tree_map  # noqa: E402
 from mmdgan_torch.train.step import (  # noqa: E402
     build_device_data_step,
+    build_grad_accum_step,
+    build_imbalanced_multi_step,
     build_multi_step,
     build_train_step,
     graph_steps,
@@ -114,6 +141,10 @@ LOSSES = ("logistic", "hinge", "wasserstein", "mmd_g", "mgb", "mmd_t", "cramer",
 KERNEL_LOSSES = ("rep", "rep_gp", "rep_ds", "rmb", "rmb_gp", "rmb_ds")
 STATEFUL_LOSSES = ("mmd_g_mix", "sgm", "rand_g_mix", "sym_rg_mix", "instance_noise")
 PROFILED_LOSSES = KERNEL_LOSSES + ("logistic", "mmd_g", "rand_g_mix", "wasserstein")
+HD_SIZE, HD_ROWS, HD_MICRO = 512, 256, (1, 8)   # bench.py's hd512 line
+HD_CALLS = 4                        # timed windows of each hd512 run
+ACCUM_M = 4                         # the accumulated step of phase 10's checks
+IMBALANCED = [1, 5]
 VAL_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-8)
 # H100 SXM data sheet: HBM bandwidth, fp32 rate outside the tensor cores
@@ -346,81 +377,110 @@ def narrow_architecture() -> dict:
     return arch
 
 
-def check_against_cpu(dev, loss_type: str) -> None:
-    """Phase 4: float32 steps of a narrow model on the card (the kernel
-    path) and on the CPU (the plain path) from the same init, data and z:
-    one 'rmb' step, then three compared steps of ``loss_type``. Step 0 is
-    degenerate (the initial power vectors are not normalized, so every D
-    layer shrinks the scores to near-duplicates, where Cramér's gradient
-    is rounding noise that Adam turns into steps of the learning rate); the
-    bounded kernel of 'rmb' takes it well-conditioned, and its step
-    normalizes the power vectors. TF32 off on both conv and matmul, so the
-    two differ only in summation order: rtol 1e-3 / atol 1e-5 on every
-    step metric, the score means taken as s_x_mean - s_gen_mean."""
+def narrow_metrics(device, loss_type: str, micro: int = None, arch: dict = None) -> list:
+    """float32 steps of a narrow model (``narrow_architecture`` unless
+    ``arch``) on ``device`` from the state of seed 0: one fused 'rmb' step,
+    then three steps of ``loss_type``, fused or accumulated over ``micro``
+    micro-batches, fed RandomState(7)'s batches, z and penalty weights.
+    Returns the metrics of steps 1-3, the score means as their difference
+    (the score layer's bias has no true gradient: a common shift of all
+    scores leaves every distance unchanged, so Adam moves it by rounding
+    noise that differs between devices).
+
+    Step 0 is degenerate (the initial power vectors are not normalized, so
+    every D layer shrinks the scores to near-duplicates, where Cramér's
+    gradient is rounding noise that Adam turns into steps of the learning
+    rate); the bounded kernel of 'rmb' takes it well-conditioned, and its
+    step normalizes the power vectors."""
+    arch = narrow_architecture() if arch is None else arch
+    rng = np.random.RandomState(7)
+    x = rng.randn(4, 8, 32, 32, 3).clip(-1, 1).astype(np.float32)
+    z = rng.randn(4, 8, 128).astype(np.float32)
+    uni = rng.uniform(size=(4, 8, 1, 1, 1)).astype(np.float32)
+    opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+    first, model = (SNGan(arch, loss_type=loss, compute_dtype=torch.float32, device=device)
+                    for loss in ("rmb", loss_type))
+    steps = [build_train_step(first, opt_d, opt_g, device=device),
+             build_train_step(model, opt_d, opt_g, device=device) if micro is None else
+             build_grad_accum_step(model, opt_d, opt_g, micro, device=device)]
+    ts = init_train_state(first, 0, opt_d, opt_g, device=device)
+    metrics = []
+    for k in range(4):
+        kw = {} if k == 0 or micro is None else {"uni": uni[k]}
+        ts, m = steps[min(k, 1)](ts, {"x": x[k]}, code_batch={"x": z[k]}, **kw)
+        metrics.append({key: v.item() for key, v in m.items()})
+    for m in metrics:
+        m["s_x_mean"] -= m.pop("s_gen_mean")
+    return metrics[1:]
+
+
+def tf32_off(fn):
+    """``fn()`` with TF32 off in cuDNN and cuBLAS, so that two devices or
+    two codes differ only in summation order."""
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        rng = np.random.RandomState(7)
-        x = rng.randn(4, 8, 32, 32, 3).clip(-1, 1).astype(np.float32)
-        z = rng.randn(4, 8, 128).astype(np.float32)
-        runs = {}
-        for device in ("cpu", dev):
-            opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
-            steps = [build_train_step(SNGan(narrow_architecture(), loss_type=loss,
-                                            compute_dtype=torch.float32, device=device),
-                                      opt_d, opt_g, device=device)
-                     for loss in ("rmb", loss_type)]
-            ts = init_train_state(SNGan(narrow_architecture(), device=device), 0, opt_d, opt_g,
-                                  device=device)
-            metrics = []
-            for k in range(4):
-                ts, m = steps[min(k, 1)](ts, {"x": x[k]}, code_batch={"x": z[k]})
-                metrics.append({key: v.item() for key, v in m.items()})
-            runs[str(device)] = metrics[1:]
-        for k, (mc, mg) in enumerate(zip(runs["cpu"], runs[str(dev)]), start=1):
-            # the score layer's bias has no true gradient (a common shift
-            # of all scores leaves every distance unchanged), so Adam moves
-            # it by rounding noise that differs between devices; compare
-            # the score means only through their shift-free difference
-            for m in (mc, mg):
-                m["s_x_mean"] -= m.pop("s_gen_mean")
-            for key in mc:
-                np.testing.assert_allclose(mg[key], mc[key], rtol=1e-3, atol=1e-5,
-                                           err_msg=f"step {k} {key}, card vs CPU")
-        last = runs[str(dev)][-1]
-        log(f"[reference] narrow f32 {loss_type}, steps 1-3 card vs CPU agree on "
-            f"{len(last)} metrics: step 3 loss_gen {last['loss_gen']:.6f} "
-            f"loss_dis {last['loss_dis']:.6f}")
+        return fn()
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def main_path_setup(dev, loss_type: str, capture: bool = True) -> tuple:
-    """The full-width model at bf16, its train state from seed 0, the
-    K-step driver (graphed unless ``capture=False``) and one K-stacked
+def assert_metrics_close(got: list, want: list, what: str) -> float:
+    """rtol 1e-3 / atol 1e-5 on every metric of every step; returns the
+    largest relative difference."""
+    worst = 0.0
+    for k, (mg, mw) in enumerate(zip(got, want), start=1):
+        for key in mw:
+            np.testing.assert_allclose(mg[key], mw[key], rtol=1e-3, atol=1e-5,
+                                       err_msg=f"step {k} {key}, {what}")
+            worst = max(worst, abs(mg[key] - mw[key]) / max(abs(mw[key]), 1e-12))
+    return worst
+
+
+def check_against_cpu(dev, loss_type: str, micro: int = None) -> None:
+    """Phases 4 and 10: ``narrow_metrics`` on the card (the kernel path) and
+    on the CPU (the plain path), TF32 off: steps 1-3 of ``loss_type``,
+    fused or accumulated over ``micro`` micro-batches, agree at rtol 1e-3 /
+    atol 1e-5 on every step metric."""
+    runs = tf32_off(lambda: [narrow_metrics(d, loss_type, micro) for d in ("cpu", dev)])
+    worst = assert_metrics_close(runs[1], runs[0], "card vs CPU")
+    last = runs[1][-1]
+    what = loss_type if micro is None else f"{loss_type} accumulated over M={micro}"
+    log(f"[reference] narrow f32 {what}, steps 1-3 card vs CPU agree on {len(last)} metrics "
+        f"(largest relative difference {worst:.2e}): step 3 loss_gen {last['loss_gen']:.6f} "
+        f"loss_dis {last['loss_dis']:.6f}")
+
+
+def main_path_setup(dev, loss_type: str, capture: bool = True, arch: dict = None,
+                    make_multi=build_multi_step) -> tuple:
+    """The full-width model (CIFAR-10 unless ``arch``) at bf16, its train
+    state from seed 0, the K-step runner ``make_multi(model, opt_d, opt_g,
+    K, capture=...)`` (graphed unless ``capture=False``) and one K-stacked
     batch of noise from seed 0."""
-    model = SNGan(cifar_architecture(), loss_type=loss_type)
+    arch = cifar_architecture() if arch is None else arch
+    model = SNGan(arch, loss_type=loss_type)
     opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
     ts = init_train_state(model, 0, opt_d, opt_g)
-    multi = build_multi_step(model, opt_d, opt_g, SCAN_K, capture=capture)
+    multi = make_multi(model, opt_d, opt_g, SCAN_K, capture=capture)
+    c, h, w = arch["input"][0]
     rng = np.random.RandomState(0)
     batches = {"x": torch.tensor(
-        rng.randn(SCAN_K, BATCH, 32, 32, 3).astype(np.float32).clip(-1, 1), device=dev)}
+        rng.randn(SCAN_K, BATCH, h, w, c).astype(np.float32).clip(-1, 1), device=dev)}
     return model, ts, multi, batches
 
 
-def timed_windows(multi, ts, batches, **kw) -> tuple:
+def timed_windows(multi, ts, batches, measure: int = MEASURE_CALLS, **kw) -> tuple:
     """WARMUP_CALLS windows (for a fresh graphed driver: the eager warm-up,
-    then the capture), then MEASURE_CALLS timed; returns (ts, last metrics,
+    then the capture), then ``measure`` timed; returns (ts, last metrics,
     steps/s)."""
     for _ in range(WARMUP_CALLS):
         ts, m = multi(ts, batches, **kw)
     torch.cuda.synchronize()
     start = time.perf_counter()
-    for _ in range(MEASURE_CALLS):
+    for _ in range(measure):
         ts, m = multi(ts, batches, **kw)
     torch.cuda.synchronize()
-    return ts, m, MEASURE_CALLS * SCAN_K / (time.perf_counter() - start)
+    return ts, m, measure * SCAN_K / (time.perf_counter() - start)
 
 
 def run_main_path(dev, loss_type: str, card: str) -> tuple:
@@ -779,31 +839,55 @@ def _device_data_ends(dev, data_x, sampling: str) -> tuple:
     return tuple(ends)
 
 
+def run_clis(runs: list, tmp: str) -> None:
+    """Each ``(module, args, what)`` as ``python -m
+    mmdgan_torch.experiments.<module> args --out-dir <its own folder>`` in
+    a subprocess, all started together (their start-up is host work); each
+    must exit 0 and print its throughput line. Every process is ended
+    before this returns."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    procs = []
+    try:
+        for i, (module, args, what) in enumerate(runs):
+            log_file = open(os.path.join(tmp, f"cli{i}.log"), "w+")
+            procs.append((module, what, log_file, subprocess.Popen(
+                [sys.executable, "-m", f"mmdgan_torch.experiments.{module}", *args,
+                 "--out-dir", os.path.join(tmp, f"run{i}")],
+                cwd=repo, stdout=log_file, stderr=subprocess.STDOUT, text=True)))
+        for module, what, log_file, proc in procs:
+            rc = proc.wait(timeout=400)
+            log_file.seek(0)
+            out = log_file.read()
+            assert rc == 0, f"{module} CLI ({what}) exited {rc}:\n{out[-4000:]}"
+            lines = [ln for ln in out.splitlines() if "train_steps_per_sec" in ln]
+            assert lines, f"{module} CLI ({what}) printed no throughput line"
+            log(f"[cli] {module}, {what}: exit 0 within {time.perf_counter() - start:.1f} s of "
+                f"the start; {lines[-1]}")
+    finally:
+        for _, _, log_file, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+
+
 def check_cli() -> None:
-    """Phase 8: ``python -m mmdgan_torch.experiments.cifar`` in a
-    subprocess, host-fed on synthetic data, then over a tfrecord of 4,096
-    seeded images (made by the port's writer) resident on the card."""
+    """Phase 8: ``python -m mmdgan_torch.experiments.cifar`` in two
+    subprocesses side by side, host-fed on synthetic data, and over a
+    tfrecord of 4,096 seeded images (made by the port's writer) resident
+    on the card."""
     with tempfile.TemporaryDirectory() as tmp:
         x = np.random.RandomState(1).randint(0, 256, (4096, 3, 32, 32), np.uint8)
         np_to_tfrecords(x, None, os.path.join(tmp, "cifar"))
         common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1",
-                  "--query-step", "160", "--out-dir", tmp]
+                  "--query-step", "160"]
         # host-fed: 20 graphed windows and 8 single steps
-        for what, extra in (("synthetic, host-fed", ["--synthetic-data", "--steps-per-chunk",
-                                                     "328"]),
-                            ("tfrecord, on the card", ["--device-dataset", "--sampling",
-                                                       "shuffled_epochs", "--data-dir", tmp,
-                                                       "--steps-per-chunk", "320"])):
-            start = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "mmdgan_torch.experiments.cifar", *common, *extra],
-                cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-                timeout=300)
-            assert proc.returncode == 0, f"cifar CLI ({what}) exited {proc.returncode}:\n" \
-                                         f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}"
-            lines = [ln for ln in proc.stdout.splitlines() if "train_steps_per_sec" in ln]
-            assert lines, f"cifar CLI ({what}) printed no throughput line"
-            log(f"[cli] {what}: exit 0 in {time.perf_counter() - start:.1f} s; {lines[-1]}")
+        run_clis([("cifar", common + ["--synthetic-data", "--steps-per-chunk", "328"],
+                   "synthetic, host-fed"),
+                  ("cifar", common + ["--device-dataset", "--sampling", "shuffled_epochs",
+                                      "--data-dir", tmp, "--steps-per-chunk", "320"],
+                   "tfrecord, on the card")], tmp)
 
 
 def copy_state(ts: TrainState) -> TrainState:
@@ -910,6 +994,205 @@ def check_penalty_determinism(dev) -> None:
         "generator's state included)")
 
 
+def reset_counters() -> None:
+    cuda_mmd.kernel_means_cuda.launches = cuda_mmd.kernel_means_backward_cuda.launches = 0
+
+
+def assert_counted(what: str, windows: int) -> None:
+    """The wrappers' counters, zeroed before, after ``windows`` eager
+    windows or captures of K optimizer steps: 1 forward and 2 backward
+    launches per optimizer step in each."""
+    got = [cuda_mmd.kernel_means_cuda.launches, cuda_mmd.kernel_means_backward_cuda.launches]
+    want = [n * SCAN_K * windows for n in KERNEL_EVENTS.values()]
+    assert got == want, f"{what}: kernel-means counters {got}, want {want}"
+
+
+def run_family(dev, name: str, arch: dict, card: str) -> list:
+    """Phase 10: one family at full width, rep b64 bf16, graphed K=16
+    windows on a noise feed from the state of seed 0: the eager warm-up,
+    the capture, MEASURE_CALLS timed replays (128 steps); the wrappers'
+    counters, zeroed before, show 1 forward and 2 backward launches per
+    step of the eager window and of the capture; then one replay under
+    the profiler, which must count 1 + 2 per step. Returns the profiler's
+    counts."""
+    model, ts, multi, batches = main_path_setup(dev, "rep", arch=arch)
+    n_params = sum(p.numel() for p in tree_leaves(ts.params))
+    reset_counters()
+    ts, m, sps = timed_windows(multi, ts, batches)
+    assert_counted(name, multi.graphs.eager + multi.graphs.captures)
+    prof = _profiled_window(multi, ts, batches, f"{name} replayed window")
+    bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
+    assert not bad, f"{name}: non-finite {bad}"
+    c, h, w = arch["input"][0]
+    images = model.generate(ts.params, ts.net_state, torch.Generator(dev).manual_seed(0), 4)
+    assert images.shape == (4, h, w, c) and torch.isfinite(images).all()
+    log(f"[families] {name} {h}x{w} sngan rep b{BATCH} bf16 ({n_params} parameters): graphed "
+        f"{sps:.2f} steps/s ({MEASURE_CALLS * SCAN_K} steps after {WARMUP_CALLS * SCAN_K} "
+        f"warm-up, unprofiled), loss_gen={float(m['loss_gen'][-1]):.5f} "
+        f"e_kxx={float(m['e_kxx'][-1]):.5f}; a replay: device busy {prof['union']:.4f} ms/step, "
+        f"idle {100 * (1 - prof['union'] / prof['span']):.1f}% of the span, "
+        f"{prof['activities']:.0f} activities/step, kernel means "
+        f"{prof['kernel_means_fwd'] // SCAN_K}+{prof['kernel_means_bwd'] // SCAN_K} per step; "
+        f"card: {card}")
+    _log_profile(prof, 1e3 / sps, f"{name} graphed (a replay)")
+    return [prof["kernel_means_fwd"], prof["kernel_means_bwd"]]
+
+
+def run_hd512(dev, card: str) -> list:
+    """Phase 10: ``hd_architecture(512)`` at full width, rep b64 bf16,
+    ``build_device_data_step`` (uniform) over a seeded 256 x 512 x 512 x 3
+    uint8 dataset on the card (``bench.py:157-205``), at micro_batches 1
+    and 8, each from the state of seed 0 through graphed K=16 windows: the
+    eager warm-up, the capture, HD_CALLS timed replays, then one profiled
+    replay that must count 1 forward and 2 backward kernel-means launches
+    per optimizer step. The peak memory of each run is read after the
+    previous run is freed and the peak reset, beside what was allocated
+    when the run began (the dataset, what earlier phases hold). A run at
+    M=1 that does not fit the card is reported, and M=8 runs alone.
+    Returns the profiler's counts."""
+    data_x = torch.tensor(np.random.RandomState(0).randint(
+        0, 256, (HD_ROWS, HD_SIZE, HD_SIZE, 3), np.uint8), device=dev)
+    launches = [0, 0]
+    for micro in HD_MICRO:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev) / 2**30
+        model = SNGan(hd_architecture(HD_SIZE), loss_type="rep")
+        opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+        ts = init_train_state(model, 0, opt_d, opt_g)
+        fn = build_device_data_step(model, opt_d, opt_g, SCAN_K, BATCH, micro_batches=micro)
+        rng = torch.Generator(dev).manual_seed(1)
+        drive = lambda ts, _: fn(ts, data_x, None, rng)   # noqa: E731
+        reset_counters()
+        try:
+            ts, m, sps = timed_windows(drive, ts, None, measure=HD_CALLS)
+        except torch.cuda.OutOfMemoryError as e:
+            if micro != 1:
+                raise
+            log(f"[hd512] M=1 does not fit the card: {str(e)[:200]}; M=8 runs alone")
+            del ts, fn, drive
+            continue
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        assert_counted(f"hd512 M={micro}", fn.graphs.eager + fn.graphs.captures)
+        prof = _profiled_window(drive, ts, None, f"hd512 M={micro} replayed window")
+        launches = [launches[0] + prof["kernel_means_fwd"], launches[1] + prof["kernel_means_bwd"]]
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
+        assert not bad and all(torch.isfinite(t.float()).all() for t in ts.tensors()), (
+            f"hd512 M={micro}: non-finite {bad}")
+        log(f"[hd512] hd_architecture(512) rep b{BATCH} bf16, device-resident "
+            f"{HD_ROWS}x{HD_SIZE}x{HD_SIZE}x3 uint8 ({data_x.numel() / 2**20:.0f} MiB), "
+            f"micro_batches={micro}: graphed {sps:.3f} steps/s ({HD_CALLS * SCAN_K} steps after "
+            f"{WARMUP_CALLS * SCAN_K} warm-up, unprofiled), peak memory {peak:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated; {peak - before:.2f} GiB above the "
+            f"{before:.2f} GiB allocated when the run began, the dataset among them), "
+            f"loss_gen={float(m['loss_gen'][-1]):.5f} "
+            f"e_kxx={float(m['e_kxx'][-1]):.5f}; a replay: device busy {prof['union']:.3f} "
+            f"ms/step, idle {100 * (1 - prof['union'] / prof['span']):.1f}% of the span, "
+            f"{prof['activities']:.0f} activities/step, kernel means "
+            f"{prof['kernel_means_fwd'] // SCAN_K}+{prof['kernel_means_bwd'] // SCAN_K} per "
+            f"optimizer step; card: {card}")
+        _log_profile(prof, 1e3 / sps, f"hd512 M={micro} graphed (a replay)")
+        del ts, m, fn, drive
+    return launches
+
+
+def bn_free(arch: dict) -> dict:
+    arch = copy.deepcopy(arch)
+    for layer in arch["generator"]:
+        layer["act_nm"] = None
+    return arch
+
+
+def check_accum_equals_fused(dev) -> None:
+    """Phase 10: on the card, a narrow BN-free float32 model: three rep
+    steps accumulated over ACCUM_M micro-batches against three fused ones,
+    after the same first 'rmb' step, fed the same batches and z, TF32 off:
+    every step metric at rtol 1e-3 / atol 1e-5 (cuDNN may sum a batch of 8
+    and a micro-batch of 2 in another order)."""
+    arch = bn_free(narrow_architecture())
+    fused, accum = tf32_off(lambda: [narrow_metrics(dev, "rep", micro, arch)
+                                     for micro in (None, ACCUM_M)])
+    worst = assert_metrics_close(accum, fused, "accumulated vs fused")
+    log(f"[accumulation] narrow BN-free f32 rep on the card, steps 1-3: accumulated over "
+        f"M={ACCUM_M} equals the fused step on {len(fused[-1])} metrics (largest relative "
+        f"difference {worst:.2e})")
+
+
+def check_window_determinism(dev) -> list:
+    """Phase 10, under deterministic algorithms, the full-width CIFAR-10 rep
+    model at b64 bf16: graphed and eager (``capture=False``) windows, 4 each
+    from the state of seed 0 (the graph's eager warm-up, its capture and
+    two replays; z drawn in the windows), end bitwise equal for the
+    accumulated step (M=ACCUM_M) and for an imbalanced [1, 5] window. The
+    wrappers' counters show 1 forward and 2 backward launches per
+    optimizer step in every eager window and capture; the [1, 5] window's
+    Adam counts reach 64 (D) and 13 (G: steps 0, 5, ..., 60)."""
+    accum = lambda model, od, og, k, capture: graph_steps(   # noqa: E731
+        build_grad_accum_step(model, od, og, ACCUM_M), k, capture)
+    imbalanced = lambda model, od, og, k, capture: build_imbalanced_multi_step(   # noqa: E731
+        model, od, og, k, IMBALANCED, capture=capture)
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ends = {}
+    try:
+        for name, make_multi in ((f"accumulated M={ACCUM_M}", accum),
+                              (f"imbalanced {IMBALANCED}", imbalanced)):
+            for capture in (True, False):
+                _, ts, multi, batches = main_path_setup(dev, "rep", capture, make_multi=make_multi)
+                avg = torch.zeros((), device=dev)
+                drive = multi if make_multi is accum else (
+                    lambda ts, b, multi=multi: multi(ts, b, None, avg))
+                reset_counters()
+                for _ in range(4):
+                    ts, m = drive(ts, batches)
+                torch.cuda.synchronize()
+                assert_counted(f"{name} capture={capture}",
+                               multi.graphs.eager + multi.graphs.captures if capture else 4)
+                if capture:
+                    assert multi.graphs.replays == 3, multi.graphs.replays
+                if make_multi is imbalanced:
+                    counts = (int(ts.opt_state_dis.count), int(ts.opt_state_gen.count))
+                    assert counts == (64, 13), f"{name}: Adam counts {counts}"
+                    assert torch.equal(m["do_dis"], torch.ones(SCAN_K, device=dev))
+                ends[(name, capture)] = _end_state(ts, m) + [avg]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    for name in (f"accumulated M={ACCUM_M}", f"imbalanced {IMBALANCED}"):
+        differ = _differ(ends[(name, True)], ends[(name, False)])
+        assert differ == 0, f"{name}: {differ} tensors differ, graphed vs eager windows"
+        log(f"[determinism] {name}, rep b{BATCH} bf16, {4 * SCAN_K} steps under deterministic "
+            f"algorithms: graphed and eager windows end bitwise equal "
+            f"({len(ends[(name, False)])} tensors); 1 + 2 kernel-means launches per optimizer "
+            "step counted in every eager window and capture"
+            + ("; Adam counts D 64, G 13" if name.startswith("imbalanced") else ""))
+
+
+def check_family_cli() -> None:
+    """Phase 10, five subprocesses side by side: the stl, celeba and lsun
+    CLIs on synthetic data (32 steps, two graphed windows); celeba over a
+    tfrecord of 1,024 seeded 64x64 images resident on the card with
+    ``--micro-batches 4``; cifar with ``--imbalanced-update 1,5
+    --steps-per-call 16``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        x = np.random.RandomState(2).randint(0, 256, (1024, 3, 64, 64), np.uint8)
+        np_to_tfrecords(x, None, os.path.join(tmp, "celebA_000"))
+        common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1"]
+        debug = ["--synthetic-data", "--debug-mode", "true", "--debug-step", "32"]
+        run_clis([(module, common + debug, "synthetic, 32 steps")
+                  for module in ("stl", "celeba", "lsun")]
+                 + [("celeba", common + ["--device-dataset", "--micro-batches", "4",
+                                         "--num-files", "1", "--data-dir", tmp,
+                                         "--steps-per-chunk", "64", "--query-step", "32"],
+                     "tfrecord on the card, --micro-batches 4, 64 steps"),
+                    ("cifar", common + ["--synthetic-data", "--imbalanced-update", "1,5",
+                                        "--steps-per-call", "16", "--steps-per-chunk", "64",
+                                        "--query-step", "32"],
+                     "synthetic, --imbalanced-update 1,5 in K=16 windows, 64 steps")], tmp)
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace, chosen before
     # its first call (phase 6)
@@ -952,8 +1235,18 @@ def main() -> int:
     phase("8 cli", check_cli)
     loss_launches = phase("9 losses", lambda: run_losses(dev, card))
     phase("9 rep_gp determinism", lambda: check_penalty_determinism(dev))
+    family_launches = phase("10 families", lambda: [
+        run_family(dev, name, arch, card)
+        for name, arch in (("stl10", stl_architecture()), ("celeba", celeba_architecture()))])
+    hd_launches = phase("10 hd512", lambda: run_hd512(dev, card))
+    phase("10 accumulation checks", lambda: [
+        check_against_cpu(dev, loss, micro=ACCUM_M) for loss in ("rep", "rmb_gp")]
+        + [check_accum_equals_fused(dev)])
+    phase("10 window determinism", lambda: check_window_determinism(dev))
+    phase("10 cli", check_family_cli)
     for i, kernel in enumerate(kernels):
-        kernel["launches"] = sum(launches[i] for launches, _ in runs.values()) + loss_launches[i]
+        kernel["launches"] = (sum(launches[i] for launches, _ in runs.values()) + loss_launches[i]
+                              + sum(f[i] for f in family_launches) + hd_launches[i])
 
     log(f"[timing] seconds by phase: {json.dumps(seconds)}")
     log(json.dumps({"kernels": kernels}))

@@ -2,14 +2,17 @@
 my_test_*.py protocol as a CLI, train N chunks and log the SN sigmas
 after each, on one device (``--device``, ``cuda`` by default).
 
-The flags are the JAX runner's, with its defaults. A flag whose module is
-not ported yet raises and names its ROADMAP item: the eval sampling and
-the IS/FID scores (A14: a run needs ``--skip-sampling --skip-metrics``),
-``--use-pallas`` (the TPU kernel; the port always runs its own CUDA
-kernel-means kernel, B1), ``--micro-batches`` (A12), ``--compilation-cache``
-(A16), ``--bf16-moments`` (A7), ``--imbalanced-update`` with
-``--steps-per-call`` > 1 (A12) and ``--num-class``/``--sample-same-class``
-(A13/A12). ``--loss`` takes every name of the loss dispatcher.
+The flags are the JAX runner's, with its defaults. ``--micro-batches M``
+runs the accumulated step (``build_grad_accum_step``), host-fed or, with
+``--device-dataset``, inside the device-data windows; ``--imbalanced-update``
+runs inside ``--steps-per-call`` windows, its flags computed on the
+device. A flag whose module is not ported yet raises and names its ROADMAP
+item: the eval sampling and the IS/FID scores (A14: a run needs
+``--skip-sampling --skip-metrics``), ``--use-pallas`` (the TPU kernel; the
+port always runs its own CUDA kernel-means kernel, B1),
+``--compilation-cache`` (A16), ``--bf16-moments`` (A7) and
+``--num-class``/``--sample-same-class`` (A13/A12). ``--loss`` takes every
+name of the loss dispatcher.
 """
 
 from __future__ import annotations
@@ -71,8 +74,8 @@ def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--steps-per-call", type=int, default=16,
-                   help="K train steps per CUDA graph launch; needs a constant "
-                        "update schedule")
+                   help="K train steps per CUDA graph launch (an imbalanced schedule "
+                        "is computed on the device inside the window)")
     p.add_argument("--device-dataset", action="store_true",
                    help="upload the whole dataset to device memory once and take "
                         "batches on the device")
@@ -89,7 +92,8 @@ def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--param-hist-step", type=int, default=0,
                    help="write per-variable parameter histograms every N steps (0 = off)")
     p.add_argument("--micro-batches", type=int, default=1, metavar="M",
-                   help="gradient accumulation (not ported: ROADMAP A12)")
+                   help="exact gradient accumulation: run each batch in M micro-batch "
+                        "chunks at 1/M activation memory (the hd configurations)")
     p.add_argument("--compilation-cache", default="", metavar="DIR",
                    help="persistent compilation cache (not ported: ROADMAP A16)")
     p.add_argument("--device", default="cuda",
@@ -105,12 +109,8 @@ def refuse_unported(args) -> None:
          "pass --skip-sampling --skip-metrics"),
         (args.use_pallas, "--use-pallas selects the TPU's Pallas kernel; the port runs "
                           "its CUDA kernel-means kernel (ROADMAP B1)"),
-        (args.micro_batches > 1, "--micro-batches is not ported yet (ROADMAP A12)"),
         (bool(args.compilation_cache), "--compilation-cache is not ported yet (ROADMAP A16)"),
         (args.bf16_moments, "--bf16-moments is not ported yet (ROADMAP A7)"),
-        (args.imbalanced_update is not None and args.steps_per_call > 1,
-         "--imbalanced-update inside a --steps-per-call window is not ported yet "
-         "(ROADMAP A12); pass --steps-per-call 1"),
         (args.num_class >= 2, "conditional models (--num-class) are not ported yet "
                               "(ROADMAP A13)"),
         (args.sample_same_class, "--sample-same-class is not ported yet (ROADMAP A12)"),
@@ -141,7 +141,7 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
     from mmdgan_torch.data.synthetic import synthetic_image_batches
     from mmdgan_torch.models.sngan import SNGan
     from mmdgan_torch.train.optim import multi_opt_config
-    from mmdgan_torch.train.step import build_train_step, init_train_state
+    from mmdgan_torch.train.step import build_grad_accum_step, build_train_step, init_train_state
     from mmdgan_torch.train.trainer import Agent
 
     refuse_unported(args)
@@ -194,7 +194,12 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
     opt_d, opt_g = multi_opt_config(lr_list, optimizer=args.optimizer)
     ts = init_train_state(model, args.seed, opt_d, opt_g, device=device)
     use_device_data = args.device_dataset and not args.synthetic_data
-    step_fn = None if use_device_data else build_train_step(model, opt_d, opt_g, device=device)
+    # the device-resident path builds its own step in train_device_data
+    step_fn = None
+    if not use_device_data:
+        step_fn = (build_grad_accum_step(model, opt_d, opt_g, args.micro_batches, device=device)
+                   if args.micro_batches > 1 else
+                   build_train_step(model, opt_d, opt_g, device=device))
     print(f"Device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}); "
           f"Num instance: {num_instance}; Batch: {args.batch_size}; File_repeat: {file_repeat}",
           flush=True)
@@ -225,7 +230,7 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
                 steps_per_call=max(args.steps_per_call, 16), summary_image_fn=images,
                 seed=args.seed + chunk, sampling=args.sampling,
                 # the epoch permutations must not change at chunk boundaries
-                sampling_seed=args.seed)
+                sampling_seed=args.seed, micro_batches=args.micro_batches)
         else:
             ts = agent.train(step_fn, ts, make_data_iter(), max_step=max_step,
                              step_per_epoch=step_per_epoch, summary_image_fn=images,

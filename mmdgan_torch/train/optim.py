@@ -10,6 +10,11 @@ ops. The slots are dicts keyed like the parameters, so the JAX bridge can
 fill them. ``count`` (optax's int32 ``count``) is a 0-d tensor on the
 parameters' device and the bias corrections are computed there, so the
 update reads no host value and replays correctly from a CUDA graph.
+
+``gated_update_`` is the update gated by a flag on the device
+(``mmdgan_tpu/train/step.py:60-75``): inside a CUDA graph the flag is a
+0-d tensor that a Python ``if`` would read on the host, so the update is
+made in full and each tensor then selects its new or its old value.
 """
 
 from __future__ import annotations
@@ -60,6 +65,19 @@ class Adam:
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_addcdiv_(params, mu_hat, denom, value=-self.lr)
+
+    @torch.no_grad()
+    def gated_update_(self, params: List[torch.Tensor], grads: Sequence[torch.Tensor],
+                      state: AdamState, do: torch.Tensor) -> None:
+        """``update_`` where the 0-d bool tensor ``do`` is true; where it is
+        false, parameters, moments and ``count`` keep their values bit for
+        bit, as a skipped ``update_`` leaves them: the update runs in full,
+        then each tensor selects its new or its old value."""
+        tensors = list(params) + tree_leaves(state.mu) + tree_leaves(state.nu) + [state.count]
+        old = [t.clone() for t in tensors]
+        self.update_(params, grads, state)
+        for new, prev in zip(tensors, old):
+            new.copy_(torch.where(do, new, prev))
 
 
 def multi_opt_config(lr_list: Sequence[float], optimizer: str = "adam") -> List[Adam]:

@@ -1,24 +1,33 @@
-"""Train-step builders (``mmdgan_tpu/train/step.py:41-154,476-504,657-1237``).
+"""Train-step builders (``mmdgan_tpu/train/step.py:41-565,657-1246``).
 
 - ``build_train_step``: one step. One generator forward and one
   discriminator forward on concat(real, fake). ``grads_dis`` comes from
   ``loss_dis``, ``grads_gen`` from ``loss_gen`` through the generated
   images; both are taken before either update. ``do_dis``/``do_gen`` gate
-  the updates with a Python ``if``, so a skipped update leaves its
-  optimizer slots untouched; SN vectors and BN statistics update every
-  step. The step updates the TrainState in place, every tensor in its own
-  buffer, and returns it with the step's metrics as 0-d tensors on the
-  device; reading them is the caller's choice, so the step itself never
-  waits for the device.
+  the updates: a Python bool with an ``if``, so a skipped update leaves
+  its optimizer slots untouched; a 0-d bool tensor on the device (the
+  imbalanced window's flags, inside a CUDA graph) by selection
+  (``Adam.gated_update_``), with the same result bit for bit. SN vectors
+  and BN statistics update every step. The step updates the TrainState
+  in place, every tensor in its own buffer, and returns it with the
+  step's metrics as 0-d tensors on the device; reading them is the
+  caller's choice, so the step itself never waits for the device.
+- ``build_grad_accum_step``: the same step over a global batch run in M
+  micro-batches, with exact global-batch MMD semantics.
 - ``graph_steps``: K calls of a step as one CUDA graph launch, the
   counterpart of one ``lax.scan`` launch (``StepGraphs`` says how the
   graphs are made); on the CPU, or with ``capture=False``, an eager loop.
 - ``build_multi_step``: ``graph_steps`` of the train step over a K-stacked
   batch.
+- ``imbalanced_scan`` / ``build_imbalanced_multi_step``: K steps per
+  launch whose update flags are computed on the device from the step
+  count (a ``[d, g]`` period list) or from a uniform draw and the carried
+  average of ``loss_gen`` (``'dynamic'``).
 - ``build_device_data_step``: K steps whose batches are taken on the
   device from a dataset that lives there, the sampler inside the graph;
   it shares ``graph_steps``' window runner (``_window_runner``).
 - ``EpochPermuter``: the per-epoch layouts of ``sampling='shuffled_epochs'``.
+- ``build_eval_step``: eval-mode generation.
 """
 
 from __future__ import annotations
@@ -29,7 +38,14 @@ import numpy as np
 import torch
 
 from mmdgan_torch import DeviceLike, check_device
-from mmdgan_torch.models.sngan import SNGan, decode_image_batch, to_nchw
+from mmdgan_torch.models.sngan import (
+    DS_LOSSES,
+    GP_LOSSES,
+    SNGan,
+    decode_image_batch,
+    jacobian_squared_frobenius_norm,
+    to_nchw,
+)
 from mmdgan_torch.train.optim import Adam
 from mmdgan_torch.train.state import TrainState, copy_tree_, loss_state_leaves, tree_leaves
 
@@ -47,15 +63,29 @@ def init_train_state(model: SNGan, seed: int, opt_dis: Adam, opt_gen: Adam,
         rng=torch.Generator(dev).manual_seed(int(seed) + 1))
 
 
-def _grads(loss: torch.Tensor, leaves, retain_graph: bool = False):
-    """d loss / d leaves; zeros for a constant loss (the 'test' loss)."""
-    if not loss.requires_grad:
-        return [torch.zeros_like(p) for p in leaves]
-    return torch.autograd.grad(loss, leaves, retain_graph=retain_graph)
+def _grads(out: torch.Tensor, inputs, retain_graph: bool = False,
+           cotangent: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """d out / d inputs (the vector-Jacobian product with ``cotangent`` when
+    given); zeros where ``out`` does not reach an input, and for a constant
+    loss (the 'test' loss)."""
+    if not out.requires_grad:
+        return [torch.zeros_like(t) for t in inputs]
+    grads = torch.autograd.grad(out, inputs, cotangent, retain_graph=retain_graph,
+                                allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads)]
 
 
 def _global_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+
+
+def _update(opt: Adam, do, leaves, grads, opt_state) -> None:
+    """One optimizer update gated by ``do``: a Python bool by ``if``, a 0-d
+    bool tensor (a flag on the device) by ``Adam.gated_update_``."""
+    if isinstance(do, torch.Tensor):
+        opt.gated_update_(leaves, grads, opt_state, do)
+    elif do:
+        opt.update_(leaves, grads, opt_state)
 
 
 def build_train_step(model: SNGan, opt_dis: Adam, opt_gen: Adam,
@@ -81,10 +111,8 @@ def build_train_step(model: SNGan, opt_dis: Adam, opt_gen: Adam,
         gen_leaves = tree_leaves(ts.params["gen"])
         grads_dis = _grads(loss_dis, dis_leaves, retain_graph=True)
         grads_gen = _grads(loss_gen, gen_leaves)
-        if do_dis:
-            opt_dis.update_(dis_leaves, grads_dis, ts.opt_state_dis)
-        if do_gen:
-            opt_gen.update_(gen_leaves, grads_gen, ts.opt_state_gen)
+        _update(opt_dis, do_dis, dis_leaves, grads_dis, ts.opt_state_dis)
+        _update(opt_gen, do_gen, gen_leaves, grads_gen, ts.opt_state_gen)
         # after both gradients: autograd saved the old SN vectors
         copy_tree_(ts.net_state, {"gen": gen_state, "dis": dis_state})
         with torch.no_grad():
@@ -93,6 +121,169 @@ def build_train_step(model: SNGan, opt_dis: Adam, opt_gen: Adam,
             ts.step.add_(1)
         metrics = {"loss_gen": loss_gen.detach(), "loss_dis": loss_dis.detach(),
                    **{k: v.detach() for k, v in aux.items()}}
+        if model.do_summary:
+            metrics["grad_norm_dis"] = _global_norm(grads_dis)
+            metrics["grad_norm_gen"] = _global_norm(grads_gen)
+        return ts, metrics
+
+    return train_step
+
+
+def build_grad_accum_step(model: SNGan, opt_dis: Adam, opt_gen: Adam, micro_batches: int,
+                          device: DeviceLike = None) -> Callable:
+    """One optimizer step over a global batch run in M micro-batches
+    (``mmdgan_tpu/train/step.py:157-473``): batches whose activations
+    outgrow the card, at 1/M of the activation memory for about twice the
+    forward work. Exact global-batch MMD semantics, not loss averaging
+    (the MMD kernel matrices do not decompose over micro-batches):
+
+    1. pass 1 runs G and D on each micro-batch without autograd and keeps
+       only its [B/M, d] scores (and, for the penalties, the generated
+       images);
+    2. the penalty or scale pass: per micro-batch, the witness penalty
+       (``*_gp``) and its gradient with respect to the D parameters and
+       to the global scores, WGAN-GP's (``wasserstein``) with respect to
+       the D parameters, or the Jacobian term of the scale (``*_ds``) and
+       its D gradient, each summed over the micro-batches;
+    3. the loss once, on the global scores, with the penalty or scale as
+       differentiable inputs; two pulls give d loss_gen and d loss_dis by
+       the scores (and by the penalty or scale). The kernel-means kernels
+       run here: 1 forward and 2 backward launches per optimizer step,
+       whatever M is;
+    4. pass 2 recomputes each micro forward with autograd and pulls its
+       slices of the score cotangents into the D and G gradients; the
+       penalty's direct D gradient and its chain factor are added once.
+
+    Returns ``train_step(ts, data_batch, do_dis=True, do_gen=True,
+    code_batch=None, uni=None) -> (ts, metrics)``, the signature of
+    ``build_train_step`` plus ``uni`` ([B, 1, 1, 1], the penalty's
+    interpolation weights, drawn when not given). It draws from the
+    state's generator in the fused step's order: all B rows of z, then
+    the loss's draws, then all B rows of ``uni``, split per micro-batch;
+    so at M=1, or on a model without BN, it equals the fused step up to
+    summation order.
+
+    With BN, train mode normalises each micro-batch by its own
+    statistics, and the step's moving-statistic update is the average of
+    the micro-batches' updates (every state leaf is averaged; the SN
+    vectors are the same in every micro-batch)."""
+    dev = check_device(model.device, device)
+    m_count = int(micro_batches)
+    if m_count < 1:
+        raise ValueError(f"micro_batches must be >= 1, got {micro_batches}")
+    loss_type = model.loss_type
+    is_gp, is_w, is_ds = (loss_type in GP_LOSSES, loss_type == "wasserstein",
+                          loss_type in DS_LOSSES)
+    needs_gx = is_gp or is_w
+
+    def micro_fwd(ts: TrainState, x: torch.Tensor, z: torch.Tensor):
+        """Scores of concat(real, fake), real first; the new states; the
+        generated images."""
+        gen_x, gen_state = model.Gen.apply(ts.params["gen"], ts.net_state["gen"], z, train=True)
+        scores, dis_state = model.Dis.apply(ts.params["dis"], ts.net_state["dis"],
+                                            torch.cat([x, gen_x], dim=0), train=True)
+        return scores, {"gen": gen_state, "dis": dis_state}, gen_x
+
+    def train_step(ts: TrainState, data_batch: Dict, do_dis: bool = True, do_gen: bool = True,
+                   code_batch: Optional[Dict] = None, uni: Optional[torch.Tensor] = None):
+        x = torch.as_tensor(data_batch["x"], device=dev)
+        x = to_nchw(decode_image_batch({"x": x})["x"])
+        b = x.shape[0]
+        if b % m_count:
+            raise ValueError(f"a batch of {b} does not split into {m_count} micro-batches")
+        z = model.sample_codes(ts.rng, b, None if code_batch is None else code_batch["x"])["x"]
+        xs, zs = x.chunk(m_count), z.chunk(m_count)
+        dis_leaves = tree_leaves(ts.params["dis"])
+        gen_leaves = tree_leaves(ts.params["gen"])
+
+        # pass 1: scores only (and the images the penalties interpolate)
+        n = b // m_count
+        s_xs, s_gens, gxs, gx_abs = [], [], [], []
+        with torch.no_grad():
+            for xm, zm in zip(xs, zs):
+                scores, _, gen_x = micro_fwd(ts, xm, zm)
+                s_xs.append(scores[:n])
+                s_gens.append(scores[n:])
+                if needs_gx:
+                    gxs.append(gen_x)
+                else:
+                    gx_abs.append(torch.mean(torch.abs(gen_x)))
+        # the global scores, leaves of the penalty's and the loss's pulls
+        s_x, s_gen = torch.cat(s_xs).requires_grad_(True), torch.cat(s_gens).requires_grad_(True)
+        gx_abs_mean = (torch.mean(torch.abs(torch.cat(gxs))) if needs_gx else
+                       torch.mean(torch.stack(gx_abs)))
+        draws = model.loss_hp.draw(loss_type, s_gen, ts.rng)
+
+        # the penalty or scale pass, per micro-batch
+        pen_in = scale_in = None
+        if needs_gx:
+            if uni is None:
+                uni = torch.rand((b, 1, 1, 1), generator=ts.rng, device=dev)
+            unis = torch.as_tensor(uni, dtype=torch.float32, device=dev).chunk(m_count)
+            wrt = dis_leaves + ([s_x, s_gen] if is_gp else [])
+            pen_sum, pen_gd = 0.0, [torch.zeros_like(t) for t in wrt]
+            for xm, gxm, um in zip(xs, gxs, unis):
+                if is_gp:
+                    pen = model.mmd_gradient_penalty(ts.params["dis"], ts.net_state, xm, gxm,
+                                                     s_x, s_gen, mode=loss_type, uni=um)
+                else:
+                    pen = model.gradient_penalty(ts.params["dis"], ts.net_state, xm, gxm, uni=um)
+                torch._foreach_add_(pen_gd, _grads(pen, wrt))
+                pen_sum = pen_sum + pen.detach()
+            # the mean over B rows is the mean of the M equal micro means
+            pen_in = (model.gp_weight * pen_sum / m_count).requires_grad_(True)
+        elif is_ds:
+            jaco_sum, pen_gd = 0.0, [torch.zeros_like(t) for t in dis_leaves]
+            fwd = lambda xx: model._dis_fwd(ts.params["dis"], ts.net_state, xx)
+            for xm in xs:
+                jaco = torch.mean(jacobian_squared_frobenius_norm(fwd, xm))
+                torch._foreach_add_(pen_gd, _grads(jaco, dis_leaves))
+                jaco_sum = jaco_sum + jaco.detach()
+            dis_scale = 1.0 / (model.penalty_weight * (jaco_sum / m_count) + 1.0)
+            scale_in = dis_scale.requires_grad_(True)
+
+        # the loss, once, on the global scores
+        loss_gen, loss_dis, new_loss_state, loss_aux = model.loss_hp.apply(
+            s_gen, s_x, loss_type, batch_size=b, d=model.score_size,
+            dis_penalty=pen_in, dis_scale=scale_in, state=ts.loss_state, draws=draws)
+        extra = [t for t in (pen_in, scale_in) if t is not None]
+        cg_sg, cg_sx = _grads(loss_gen, [s_gen, s_x], retain_graph=True)
+        cd_sg, cd_sx, *cd_extra = _grads(loss_dis, [s_gen, s_x] + extra)
+        if needs_gx:
+            w_pen = cd_extra[0] * model.gp_weight / m_count
+        if is_gp:
+            # the witness penalty's score cotangents ride pass 2's D pull
+            cd_sx = cd_sx + w_pen * pen_gd[-2]
+            cd_sg = cd_sg + w_pen * pen_gd[-1]
+        cts_d = [torch.cat([a, g]) for a, g in zip(cd_sx.chunk(m_count), cd_sg.chunk(m_count))]
+        cts_g = [torch.cat([a, g]) for a, g in zip(cg_sx.chunk(m_count), cg_sg.chunk(m_count))]
+
+        # pass 2: each micro forward again, its cotangents pulled
+        grads_dis = [torch.zeros_like(t) for t in dis_leaves]
+        grads_gen = [torch.zeros_like(t) for t in gen_leaves]
+        state_sum = [torch.zeros_like(t) for t in tree_leaves(ts.net_state)]
+        for xm, zm, ct_d, ct_g in zip(xs, zs, cts_d, cts_g):
+            scores, new_state, _ = micro_fwd(ts, xm, zm)
+            torch._foreach_add_(grads_dis, _grads(scores, dis_leaves, True, ct_d))
+            torch._foreach_add_(grads_gen, _grads(scores, gen_leaves, False, ct_g))
+            torch._foreach_add_(state_sum, tree_leaves(new_state))
+        if needs_gx:
+            torch._foreach_add_(grads_dis, torch._foreach_mul(pen_gd[:len(dis_leaves)], w_pen))
+        elif is_ds:
+            # scale = 1 / (w mean + 1), so d scale / d mean = -w scale^2
+            w_ds = cd_extra[0] * (-model.penalty_weight * dis_scale.detach() ** 2) / m_count
+            torch._foreach_add_(grads_dis, torch._foreach_mul(pen_gd, w_ds))
+
+        _update(opt_dis, do_dis, dis_leaves, grads_dis, ts.opt_state_dis)
+        _update(opt_gen, do_gen, gen_leaves, grads_gen, ts.opt_state_gen)
+        with torch.no_grad():
+            torch._foreach_copy_(tree_leaves(ts.net_state), torch._foreach_div(state_sum, m_count))
+            torch._foreach_copy_(loss_state_leaves(ts.loss_state),
+                                 loss_state_leaves(new_loss_state))
+            ts.step.add_(1)
+        metrics = {"loss_gen": loss_gen.detach(), "loss_dis": loss_dis.detach(),
+                   "s_x_mean": torch.mean(s_x.detach()), "s_gen_mean": torch.mean(s_gen.detach()),
+                   "x_gen_abs_mean": gx_abs_mean, **{k: v.detach() for k, v in loss_aux.items()}}
         if model.do_summary:
             metrics["grad_norm_dis"] = _global_norm(grads_dis)
             metrics["grad_norm_gen"] = _global_norm(grads_gen)
@@ -251,6 +442,28 @@ def _window_runner(step: Callable, num_steps: int, capture: Optional[bool]) -> C
     return run
 
 
+def _host_window(step: Callable, num_steps: int, capture: Optional[bool]) -> Callable:
+    """``_window_runner`` fed K-stacked host batches, each shape staged
+    into its own static buffer (the graph reads it on replay)."""
+    run = _window_runner(step, num_steps, capture)
+    staged: Dict = {}
+
+    def window(ts: TrainState, batches: Dict, bound: List[torch.Tensor],
+               generators: List[torch.Generator], do_dis: bool, do_gen: bool,
+               code_batches: Optional[Dict]):
+        xs = _stacked("batches", batches["x"], num_steps, ts.step.device)
+        key = (tuple(xs.shape), xs.dtype)
+        if key not in staged:
+            staged[key] = torch.empty_like(xs)
+        x_buf = staged[key]
+        x_buf.copy_(xs, non_blocking=True)
+        return run(ts, key, lambda k: {"x": x_buf[k]}, bound, generators, do_dis, do_gen,
+                   code_batches)
+
+    window.graphs = run.graphs
+    return window
+
+
 def graph_steps(step: Callable, num_steps: int, capture: Optional[bool] = None) -> Callable:
     """K calls of ``step`` per call, returned as ``multi_step(ts, batches,
     do_dis=True, do_gen=True, code_batches=None) -> (ts, metrics)``.
@@ -264,20 +477,13 @@ def graph_steps(step: Callable, num_steps: int, capture: Optional[bool] = None) 
     host copies the batches into the graph's static buffer, then replays.
     ``capture=False`` runs the K steps eagerly, as on the CPU. The graphs
     are in ``multi_step.graphs``."""
-    run = _window_runner(step, num_steps, capture)
-    staged: Dict = {}
+    window = _host_window(step, num_steps, capture)
 
     def multi_step(ts: TrainState, batches: Dict, do_dis: bool = True, do_gen: bool = True,
                    code_batches: Optional[Dict] = None):
-        xs = _stacked("batches", batches["x"], num_steps, ts.step.device)
-        key = (tuple(xs.shape), xs.dtype)
-        if key not in staged:
-            staged[key] = torch.empty_like(xs)
-        x_buf = staged[key]
-        x_buf.copy_(xs, non_blocking=True)
-        return run(ts, key, lambda k: {"x": x_buf[k]}, [], [], do_dis, do_gen, code_batches)
+        return window(ts, batches, [], [], do_dis, do_gen, code_batches)
 
-    multi_step.graphs = run.graphs
+    multi_step.graphs = window.graphs
     return multi_step
 
 
@@ -287,6 +493,72 @@ def build_multi_step(model: SNGan, opt_dis: Adam, opt_gen: Adam, num_steps: int,
     ``build_train_step``): one CUDA graph launch per call on CUDA, the
     counterpart of one ``lax.scan`` launch."""
     return graph_steps(build_train_step(model, opt_dis, opt_gen, device), num_steps, capture)
+
+
+def imbalanced_scan(step: Callable, num_steps: int, imbalanced,
+                    capture: Optional[bool] = None) -> Callable:
+    """K steps per call of ``step`` with the update schedule computed on the
+    device (``mmdgan_tpu/train/step.py:507-565``), graphed as
+    ``graph_steps`` graphs its windows.
+
+    ``imbalanced`` is ``[a, b]`` (D updates when step % a == 0, G when
+    step % b == 0, the step read on the device) or ``'dynamic'``
+    (graph_func.py:916-919: D updates while step < 1000, then when a
+    uniform from ``rng`` falls below 0.1 / max(avg, 0.1); G always).
+    ``avg`` is the average of loss_gen that the window carries, ``0.99 avg
+    + 0.01 loss_gen`` after every step, under either schedule.
+
+    Returns ``multi_step(ts, batches, rng, mmd_avg, code_batches=None) ->
+    (ts, metrics)``: ``rng`` is a generator on the state's device (unused,
+    and may be None, for a list schedule; the JAX package's key
+    ``PRNGKey(start_step + 98765)`` is a generator seeded with that number
+    here) and ``mmd_avg`` a 0-d float32 tensor there; both advance in
+    place (JAX returns new ones) and are bound to the graphs.
+    ``metrics['do_dis']`` is stacked like the other scalars. The flags
+    reach ``step`` as 0-d bool tensors, so its updates are gated by
+    selection (``Adam.gated_update_``)."""
+    is_list = isinstance(imbalanced, (list, tuple))
+    if not is_list and imbalanced != "dynamic":
+        raise ValueError(f"imbalanced schedule {imbalanced!r} not supported")
+    carried: Dict = {}
+
+    def scheduled(ts: TrainState, batch: Dict, _do_dis, _do_gen,
+                  code_batch: Optional[Dict] = None):
+        avg = carried["avg"]
+        if is_list:
+            do_dis = torch.remainder(ts.step, imbalanced[0]) == 0
+            do_gen = torch.remainder(ts.step, imbalanced[1]) == 0
+        else:
+            u = torch.rand((), generator=carried["rng"], device=avg.device)
+            do_dis = (ts.step < 1000) | (u < 0.1 / torch.clamp(avg, min=0.1))
+            do_gen = torch.ones((), dtype=torch.bool, device=avg.device)
+        args = () if code_batch is None else (code_batch,)
+        ts, metrics = step(ts, batch, do_dis, do_gen, *args)
+        with torch.no_grad():
+            avg.copy_(0.99 * avg + 0.01 * metrics["loss_gen"])
+        metrics["do_dis"] = do_dis.float()
+        return ts, metrics
+
+    window = _host_window(scheduled, num_steps, capture)
+
+    def multi_step(ts: TrainState, batches: Dict, rng: Optional[torch.Generator],
+                   mmd_avg: torch.Tensor, code_batches: Optional[Dict] = None):
+        if mmd_avg.device != ts.step.device:
+            raise ValueError(f"mmd_avg on {mmd_avg.device}, state on {ts.step.device}")
+        carried.update(rng=rng, avg=mmd_avg)
+        return window(ts, batches, [mmd_avg], [] if is_list else [rng], True, True,
+                      code_batches)
+
+    multi_step.graphs = window.graphs
+    return multi_step
+
+
+def build_imbalanced_multi_step(model: SNGan, opt_dis: Adam, opt_gen: Adam, num_steps: int,
+                                imbalanced, device: DeviceLike = None,
+                                capture: Optional[bool] = None) -> Callable:
+    """``imbalanced_scan`` of ``build_train_step``."""
+    return imbalanced_scan(build_train_step(model, opt_dis, opt_gen, device), num_steps,
+                           imbalanced, capture)
 
 
 def build_device_data_step(
@@ -320,15 +592,20 @@ def build_device_data_step(
     The sampler runs inside the same CUDA graph as the steps, made as
     ``graph_steps`` makes its graphs (``_window_runner``); ``capture=False``
     runs the K steps eagerly. ``fn.sampler(data_x)`` returns it as
-    ``sample(rng, step) -> batch``. Same-class sampling and micro-batches
-    (ROADMAP A12) and the mesh (``with_mesh``, ROADMAP A15) raise."""
+    ``sample(rng, step) -> batch``. ``micro_batches`` > 1 swaps the step
+    for ``build_grad_accum_step`` behind the same sampler and windows
+    (``mmdgan_tpu/train/step.py:723-732``). Same-class sampling (ROADMAP
+    A12) and the mesh (``with_mesh``, ROADMAP A15) raise."""
     if same_class:
         raise NotImplementedError("same-class sampling is not ported yet (ROADMAP A12)")
-    if int(micro_batches) != 1:
-        raise NotImplementedError("micro-batches are not ported yet (ROADMAP A12)")
     if sampling not in ("uniform", "shuffled_epochs"):
         raise ValueError(f"unknown sampling {sampling!r}")
-    run = _window_runner(build_train_step(model, opt_dis, opt_gen, device), num_steps, capture)
+    if int(micro_batches) < 1 or batch_size % int(micro_batches):
+        raise ValueError(f"a batch of {batch_size} does not split into "
+                         f"{micro_batches} micro-batches")
+    step = (build_train_step(model, opt_dis, opt_gen, device) if int(micro_batches) == 1 else
+            build_grad_accum_step(model, opt_dis, opt_gen, micro_batches, device))
+    run = _window_runner(step, num_steps, capture)
 
     def sampler(data_x: torch.Tensor, data_y=None) -> Callable:
         if data_y is not None:
@@ -424,3 +701,14 @@ class EpochPermuter:
             inv = np.argsort(prev)
             delta = inv if cur is None else inv[cur]
         return arrs if delta is None else self._permute(arrs, delta)
+
+
+def build_eval_step(model: SNGan) -> Callable:
+    """Eval-mode generation (``mmdgan_tpu/train/step.py:1240-1246``):
+    ``eval_step(ts, generator, batch_size) -> [N, H, W, C]`` images in
+    [-1, 1], z drawn from ``generator``."""
+
+    def eval_step(ts: TrainState, generator: torch.Generator, batch_size: int) -> torch.Tensor:
+        return model.generate(ts.params, ts.net_state, generator, batch_size)
+
+    return eval_step

@@ -14,16 +14,18 @@ device-resident training, checkpoints, guards, summaries, profiling.
   (``_PreemptionGuard``).
 - ``train`` runs the host-fed step one call per step (any update
   schedule, decided on the host); with ``steps_per_call`` K > 1 it runs
-  ``_train_multi``, K steps per CUDA graph launch (``graph_steps``).
-  ``train_device_data`` uploads the dataset once and runs graphed windows
-  that take their batches on the device.
+  ``_train_multi``, K steps per CUDA graph launch (``graph_steps``, or
+  ``imbalanced_scan`` for an imbalanced schedule, whose flags are then
+  computed on the device). ``train_device_data`` uploads the dataset once
+  and runs graphed windows that take their batches on the device, the
+  accumulated step among them (``micro_batches``).
 - ``do_trace``: ``torch.profiler`` over the last 5 host-fed steps, a
   chrome trace in the summary folder.
 - ``debug_mode=None`` prints the model description and returns without
   running (:1195-1204); ``True`` caps a run at ``debug_step``.
 
-Not ported: the mesh (``dp``, ROADMAP A15), imbalanced schedules inside
-a window, same-class sampling and micro-batches (ROADMAP A12).
+Not ported: the mesh (``dp``, ROADMAP A15), same-class sampling (ROADMAP
+A12, with the conditional models of A13).
 """
 
 from __future__ import annotations
@@ -39,7 +41,12 @@ import torch
 from mmdgan_torch.data.prefetch import prefetch
 from mmdgan_torch.ops.losses import HIST_RANGES
 from mmdgan_torch.train.state import TrainState
-from mmdgan_torch.train.step import EpochPermuter, build_device_data_step, graph_steps
+from mmdgan_torch.train.step import (
+    EpochPermuter,
+    build_device_data_step,
+    graph_steps,
+    imbalanced_scan,
+)
 from mmdgan_torch.utils import checkpoint
 from mmdgan_torch.utils.folders import prepare_folder
 from mmdgan_torch.utils.summary import MetricWriter
@@ -285,7 +292,7 @@ class Agent:
         :param summary_image_fn: fn(ts) -> [N,H,W,C] images for the final
             summary (my_sngan.py:459-463)
         :param steps_per_call: K > 1 runs K steps per CUDA graph launch
-            (``_train_multi``)
+            (``_train_multi``), with any update schedule
         """
         if steps_per_call > 1 and self.debug_mode is not None:
             return self._train_multi(train_step, ts, data_iter, max_step, step_per_epoch,
@@ -348,22 +355,30 @@ class Agent:
     def _train_multi(self, train_step, ts, data_iter, max_step, step_per_epoch,
                      summary_image_fn, k, force_print) -> TrainState:
         """K steps per CUDA graph launch (``graph_steps``), then the steps
-        below one window singly."""
-        if self.imbalanced_update is not None:
-            raise NotImplementedError("imbalanced update schedules inside a K-step window "
-                                      "are not ported yet (ROADMAP A12)")
+        below one window singly (``mmdgan_tpu/train/trainer.py:396-507``).
+        An imbalanced schedule runs in ``imbalanced_scan`` windows, whose
+        flags come from the step count or, for ``'dynamic'``, from a
+        generator seeded ``start_step + 98765`` and an average of loss_gen
+        on the device, both made anew by every call (the reference's
+        average restarts with each run); the remainder's flags are decided
+        on the host from that average."""
         if self.debug_mode:
             max_step = min(max_step, self.debug_step)
-        window = (id(train_step), k)
+        iu = self.imbalanced_update
+        window = (id(train_step), k, tuple(iu) if isinstance(iu, (list, tuple)) else iu)
         if window not in self._windows:
-            self._windows[window] = (train_step, graph_steps(train_step, k))
+            self._windows[window] = (train_step, graph_steps(train_step, k) if iu is None
+                                     else imbalanced_scan(train_step, k, iu))
         multi = self._windows[window][1]
         if self.load_ckpt:
             ts = self.restore(ts)
+        dev = ts.step.device
         start_step = int(ts.step)
         start = time.time()
         num_calls = max_step // k
         remainder = max_step - num_calls * k
+        sched_rng = torch.Generator(dev).manual_seed(start_step + 98765)
+        mmd_avg = torch.zeros((), device=dev)
 
         def stacked_host_batches():
             data_it = iter(data_iter)
@@ -373,10 +388,13 @@ class Agent:
                              if host[0].get(key) is not None else None)
                        for key in host[0]}
 
-        device_it = prefetch(stacked_host_batches(), ts.step.device, size=2)
+        device_it = prefetch(stacked_host_batches(), dev, size=2)
         with _PreemptionGuard(self.handle_preemption) as guard:
             for call in range(num_calls):
-                ts, metrics = multi(ts, next(device_it))
+                if iu is None:
+                    ts, metrics = multi(ts, next(device_it))
+                else:
+                    ts, metrics = multi(ts, next(device_it), sched_rng, mmd_avg)
                 if not self._after_window(ts, metrics, start_step, call, num_calls, k, start,
                                           step_per_epoch, force_print):
                     return ts
@@ -386,9 +404,13 @@ class Agent:
         # stacked batch (the prefetch thread owns the host iterator)
         if remainder and not guard.requested:
             batches = next(device_it)
+            host_rng = np.random.RandomState(start_step + 12345)
+            average = float(mmd_avg)
             for i in range(remainder):
+                do_dis, do_gen = self._update_flags(start_step + num_calls * k + i, average,
+                                                    host_rng)
                 ts, metrics = train_step(ts, {key: None if v is None else v[i]
-                                              for key, v in batches.items()}, True, True)
+                                              for key, v in batches.items()}, do_dis, do_gen)
         return self._finish(ts, max_step, start, summary_image_fn)
 
     def train_device_data(
@@ -425,8 +447,9 @@ class Agent:
         the epoch alone, so a resumed run replays them bitwise; chunked
         callers that vary ``seed`` pass a fixed ``sampling_seed``. A
         boundary crossed inside a window keeps the previous layout for
-        the rest of that window. ``sample_same_class`` and
-        ``micro_batches`` > 1 raise (ROADMAP A12)."""
+        the rest of that window. ``micro_batches`` M > 1 runs the
+        accumulated step (``build_grad_accum_step``) in the same windows.
+        ``sample_same_class`` raises (ROADMAP A12)."""
         if self.debug_mode is None:
             print("Agent: debug_mode=None, nothing to run.")
             return ts
@@ -444,7 +467,8 @@ class Agent:
         dev = ts.step.device
 
         def get_fn(num_steps):
-            key = (id(model), id(opt_dis), id(opt_gen), num_steps, batch_size, sampling)
+            key = (id(model), id(opt_dis), id(opt_gen), num_steps, batch_size, sampling,
+                   micro_batches)
             if key not in self._windows:
                 self._windows[key] = ((model, opt_dis, opt_gen), build_device_data_step(
                     model, opt_dis, opt_gen, num_steps, batch_size, sampling=sampling,

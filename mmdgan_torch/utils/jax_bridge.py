@@ -56,6 +56,12 @@ def _layer_perms(layer: Layer, prev: Optional[Layer]) -> Tuple[Optional[np.ndarr
     return rows, cols
 
 
+def _per_feature(a: np.ndarray, cols) -> np.ndarray:
+    """A bias or BN vector over the layer's flat output features, in the
+    port's order (a per-channel vector of a conv is left as it is)."""
+    return a[cols] if cols is not None and a.shape[0] == len(cols) else a
+
+
 def _param(op, name: str, a: np.ndarray, rows, cols) -> np.ndarray:
     """One parameter-shaped array (a parameter or its Adam slot) of ``op``."""
     op_kind = op.design["op"]
@@ -69,16 +75,14 @@ def _param(op, name: str, a: np.ndarray, rows, cols) -> np.ndarray:
         return a.transpose(3, 2, 0, 1)
     if op_kind == "tc":
         return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-    if op_kind in ("b", "bias"):
-        return a[cols] if cols is not None and a.shape[0] == len(cols) else a
-    if op_kind == "bn":
-        return a
+    if op_kind in ("b", "bias", "bn"):
+        return _per_feature(a, cols)
     raise NotImplementedError(f"bridge: op {op_kind} is not ported")
 
 
 def _state(op, name: str, a: np.ndarray, rows, cols) -> np.ndarray:
     if name != "sn_x":
-        return a   # BN statistics
+        return _per_feature(a, cols)   # BN statistics
     if a.ndim == 4:
         return a.transpose(0, 3, 1, 2)
     perm = rows if use_u(op.sn_def) else cols

@@ -99,8 +99,9 @@ def test_unported_sampling_options_raise():
     opt_d, opt_g = multi_opt_config([1e-3, 1e-3])
     with pytest.raises(NotImplementedError, match="A12"):
         build_device_data_step(model, opt_d, opt_g, 2, B, same_class=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_device_data_step(model, opt_d, opt_g, 2, B, micro_batches=2, device="cpu")
+    # micro-batches are ported: a count that does not split the batch raises
+    with pytest.raises(ValueError, match="micro-batches"):
+        build_device_data_step(model, opt_d, opt_g, 2, B, micro_batches=3, device="cpu")
     fn = build_device_data_step(model, opt_d, opt_g, 2, B, device="cpu")
     with pytest.raises(NotImplementedError, match="A15"):
         fn.with_mesh(None)

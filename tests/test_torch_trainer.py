@@ -253,15 +253,19 @@ def test_agent_debug_modes(tmp_path, capsys):
 
 @pytest.mark.parametrize("schedule", [[1, 2], "dynamic"])
 def test_agent_imbalanced_single_steps(tmp_path, schedule):
+    """Four host-fed single steps, then ten steps with ``steps_per_call=4``:
+    two windows whose flags come from the device, and two remainder steps
+    flagged by the host. Below step 1000 'dynamic' updates D every step."""
     model, _, _, ts, step = setup()
     a = agent(tmp_path, "imb", do_save=False, imbalanced_update=schedule, query_step=100)
     ts = a.train(step, ts, synthetic_image_batches(16, 8, 8, 1), max_step=4, step_per_epoch=10)
     assert int(ts.step) == 4
     if schedule == [1, 2]:
         assert int(ts.opt_state_dis.count) == 4 and int(ts.opt_state_gen.count) == 2
-    with pytest.raises(NotImplementedError, match="A12"):
-        a.train(step, ts, synthetic_image_batches(16, 8, 8, 1), max_step=8, step_per_epoch=10,
-                steps_per_call=4)
+    ts = a.train(step, ts, synthetic_image_batches(16, 8, 8, 1), max_step=10, step_per_epoch=10,
+                 steps_per_call=4)
+    assert int(ts.step) == 14 and int(ts.opt_state_dis.count) == 14
+    assert int(ts.opt_state_gen.count) == (7 if schedule == [1, 2] else 14)
 
 
 def test_agent_multi_step_path_with_remainder(tmp_path):
@@ -446,12 +450,31 @@ def test_cifar_cli_other_loss_with_histograms(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     ([], "A14"),
     (["--skip-sampling", "--skip-metrics", "--use-pallas"], "B1"),
-    (["--skip-sampling", "--skip-metrics", "--micro-batches", "2"], "A12"),
     (["--skip-sampling", "--skip-metrics", "--compilation-cache", "cache"], "A16"),
     (["--skip-sampling", "--skip-metrics", "--bf16-moments"], "A7"),
-    (["--skip-sampling", "--skip-metrics", "--imbalanced-update", "1,5"], "A12"),
     (["--skip-sampling", "--skip-metrics", "--num-class", "10"], "A13"),
+    (["--skip-sampling", "--skip-metrics", "--sample-same-class"], "A12"),
 ])
 def test_cifar_cli_refuses_unported_flags(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cifar_main(["--device", "cpu", "--out-dir", str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("flags,dis_count,gen_count", [
+    (["--micro-batches", "2"], 4, 4),
+    (["--imbalanced-update", "1,2"], 4, 2),
+])
+def test_cifar_cli_runs_accumulation_and_imbalanced_windows(tmp_path, flags, dis_count,
+                                                            gen_count):
+    """``--micro-batches`` (the accumulated step) and ``--imbalanced-update``
+    inside ``--steps-per-call`` windows, host-fed: four steps of the full
+    cifar model at B=4 on the CPU, two windows of two; the checkpoint holds
+    the Adam counts of the schedule."""
+    cifar_main(["--device", "cpu", "--synthetic-data", "--debug-mode", "true",
+                "--debug-step", "4", "--steps-per-call", "2", "--query-step", "2",
+                "--compute-dtype", "float32", "--skip-sampling", "--skip-metrics",
+                "--chunks", "1", "--batch-size", "4", "--out-dir", str(tmp_path), *flags])
+    run = "sngan_rep_5e-04_2e-04_k1.68_0.0_-1.0"
+    saved = torch.load(tmp_path / "cifar_ckpt" / run / "ckpt-4.pt", weights_only=False)
+    counts = {net: int(saved["opt_state_" + net]["count"]) for net in ("dis", "gen")}
+    assert counts == {"dis": dis_count, "gen": gen_count}
