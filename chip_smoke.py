@@ -75,7 +75,24 @@ Phases, each fatal on failure:
    - the stl, celeba and lsun CLIs on synthetic data, celeba over a
      seeded 64x64 tfrecord on the card with ``--micro-batches 4``, and
      cifar with ``--imbalanced-update 1,5 --steps-per-call 16``, in five
-     subprocesses side by side.
+     subprocesses side by side;
+11. eval and optimizers:
+   - ``python -m mmdgan_torch.experiments.cifar`` in this process with the
+     eval path on, full width, rep b64 bf16: 64 steps in graphed K=16
+     windows, the 20x20 sprite, IS/FID over 781 x 64 samples per side with
+     the random-feature classifier, the CLI's seconds by part (data,
+     generation, classifier, host FID), the kernel-means counters at 1 + 2
+     per step of the eager and captured windows; then the CLI with
+     ``--loss rmb --rep-w0 1 --rep-w1 0`` (training and the sprite) on the
+     plain path (0 launches);
+   - card vs CPU, TF32 off, rtol 1e-3: the random-feature classifier at
+     32x32 and 299x299, MS-SSIM, SWD, the TF1 resize, the MS-SSIM score's
+     resize and the GraphDef executor on ``tests/data/narrow_inception.pb``;
+     the classifier's images/s on the card;
+   - each optimizer (and adam's bf16 slots) through three graphed K=16 windows of
+     the narrow f32 model card vs CPU, sgd and momentum decaying their lr
+     on the device across the replays; graphed steps/s of the full-width
+     model by optimizer.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -112,7 +129,7 @@ from mmdgan_torch.data.tfrecord import np_to_tfrecords  # noqa: E402
 from mmdgan_torch.models.sngan import SNGan  # noqa: E402
 from mmdgan_torch.ops import _build, cuda_mmd  # noqa: E402
 from mmdgan_torch.ops.losses import LossState  # noqa: E402
-from mmdgan_torch.train.optim import AdamState, multi_opt_config  # noqa: E402
+from mmdgan_torch.train.optim import OptState, multi_opt_config  # noqa: E402
 from mmdgan_torch.train.state import TrainState, loss_state_leaves, tree_leaves, tree_map  # noqa: E402
 from mmdgan_torch.train.step import (  # noqa: E402
     build_device_data_step,
@@ -142,9 +159,17 @@ KERNEL_LOSSES = ("rep", "rep_gp", "rep_ds", "rmb", "rmb_gp", "rmb_ds")
 STATEFUL_LOSSES = ("mmd_g_mix", "sgm", "rand_g_mix", "sym_rg_mix", "instance_noise")
 PROFILED_LOSSES = KERNEL_LOSSES + ("logistic", "mmd_g", "rand_g_mix", "wasserstein")
 HD_SIZE, HD_ROWS, HD_MICRO = 512, 256, (1, 8)   # bench.py's hd512 line
-HD_CALLS = 4                        # timed windows of each hd512 run
+HD_CALLS = 2                        # timed windows of each hd512 run
 ACCUM_M = 4                         # the accumulated step of phase 10's checks
 IMBALANCED = [1, 5]
+EVAL_STEPS, EVAL_BATCHES = 64, 781  # phase 11: the reference protocol's 781 x 64 samples
+# (optimizer, bf16 slots, lr): rmsprop and the Adams step every parameter by
+# about lr whatever its gradient (rmsprop's first step by 3.16 lr), so rounding
+# noise moves the GAN's 48 steps apart on two devices unless lr is small
+OPTIMIZER_CASES = (("sgd", False, 1e-2), ("momentum", False, 1e-2), ("rmsprop", False, 1e-5),
+                   ("adam", False, 1e-5), ("adam_tf1", False, 1e-5), ("adam", True, 1e-5))
+OPT_WINDOWS, OPT_BATCH = 3, 4
+OPT_MEASURE_CALLS = 4               # timed windows per optimizer (64 steps)
 VAL_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-8)
 # H100 SXM data sheet: HBM bandwidth, fp32 rate outside the tensor cores
@@ -895,12 +920,12 @@ def copy_state(ts: TrainState) -> TrainState:
     captured on one is bound to its own buffers, and the full-width init
     takes seconds on the host."""
     clone = lambda t: tree_map(lambda v: v.detach().clone(), t)
-    adam = lambda s: AdamState(count=s.count.clone(), mu=clone(s.mu), nu=clone(s.nu))
+    opt = lambda s: OptState(count=s.count.clone(), slots=clone(s.slots))
     rng = torch.Generator(ts.rng.device)
     rng.set_state(ts.rng.get_state())
     return TrainState(params=clone(ts.params), net_state=clone(ts.net_state),
                       loss_state=LossState(*(t.clone() for t in loss_state_leaves(ts.loss_state))),
-                      opt_state_dis=adam(ts.opt_state_dis), opt_state_gen=adam(ts.opt_state_gen),
+                      opt_state_dis=opt(ts.opt_state_dis), opt_state_gen=opt(ts.opt_state_gen),
                       step=ts.step.clone(), rng=rng)
 
 
@@ -1193,6 +1218,277 @@ def check_family_cli() -> None:
                      "synthetic, --imbalanced-update 1,5 in K=16 windows, 64 steps")], tmp)
 
 
+def _cli_records(out: str, run: str) -> dict:
+    """The last value of every scalar in the run's metrics.jsonl."""
+    recs = {}
+    with open(os.path.join(out, "cifar_log", run, "metrics.jsonl")) as f:
+        for line in f:
+            recs.update({k: v for k, v in json.loads(line).items() if k not in ("step", "time")})
+    return recs
+
+
+def run_eval_cli(dev, card: str) -> list:
+    """Phase 11, the main path of this slice: ``python -m
+    mmdgan_torch.experiments.cifar`` in this process (so the wrappers'
+    counters see its launches) with eval on, at full width, rep b64 bf16:
+    one chunk of EVAL_STEPS steps in K=16 graphed windows, the 20x20 sprite
+    from the fixed code_x, and IS/FID over EVAL_BATCHES batches of 64 (the
+    reference protocol's 49,984 samples per side) with the random-feature
+    classifier, each part timed by the CLI (``time/eval_*``). The counters,
+    zeroed just before, must show 1 forward and 2 backward kernel-means
+    launches per step of the windows that ran eagerly or were captured (a
+    replay runs the captured kernels without the wrappers). Then the same
+    CLI with ``--loss rmb --rep-w0 1 --rep-w1 0`` (training and the
+    sprite), which takes the plain path: no kernel-means launch. Returns
+    the counts of the rep run."""
+    from mmdgan_torch.experiments.cifar import main as cifar_main
+
+    common = ["--synthetic-data", "--fresh", "--chunks", "1", "--batch-size", str(BATCH)]
+    with tempfile.TemporaryDirectory() as out:
+        reset_counters()
+        start = time.perf_counter()
+        cifar_main(common + ["--steps-per-chunk", str(EVAL_STEPS), "--eval-batches",
+                             str(EVAL_BATCHES), "--out-dir", out])
+        seconds = time.perf_counter() - start
+        counted = [cuda_mmd.kernel_means_cuda.launches,
+                   cuda_mmd.kernel_means_backward_cuda.launches]
+        run = "sngan_rep_5e-04_2e-04_k1.68_0.0_-1.0"
+        recs = _cli_records(out, run)
+        sprite = os.path.join(out, "cifar_log", run, f"cifar_g_{run}_{EVAL_STEPS}_0.png")
+        assert os.path.getsize(sprite) > 0, "no sprite"
+    windows = counted[0] // SCAN_K
+    assert counted == [n * SCAN_K * windows for n in KERNEL_EVENTS.values()] and windows >= 2, (
+        f"eval CLI: kernel-means counters {counted}")
+    scores = {k: recs[k] for k in ("eval/inception_real", "eval/inception_gen", "eval/fid_xx",
+                                   "eval/fid_xg")}
+    assert np.isfinite(list(scores.values())).all(), scores
+    parts = {k[len("time/eval_"):]: recs[k] for k in recs if k.startswith("time/eval_")}
+    images = 2 * EVAL_BATCHES * BATCH
+    log(f"[eval] cifar CLI, rep b{BATCH} bf16, {EVAL_STEPS} steps + sprite + IS/FID over "
+        f"{EVAL_BATCHES} x {BATCH} = {EVAL_BATCHES * BATCH} samples per side (random-feature "
+        f"classifier): {seconds:.1f} s in all; kernel-means counters {counted[0]}/{counted[1]} "
+        f"in the {windows} windows that ran eagerly or were captured ({EVAL_STEPS // SCAN_K} "
+        f"windows), 1 + 2 per optimizer step; scores {json.dumps(scores)}; card: {card}")
+    log(f"[eval] seconds by part: {json.dumps({k: round(v, 4) for k, v in parts.items()})}, "
+        f"eval total {sum(parts.values()):.4f} s; classifier {images / parts['classifier']:.0f} "
+        f"images/s ({images} images at 32x32, in the eval's batches of {BATCH})")
+
+    with tempfile.TemporaryDirectory() as out:
+        reset_counters()
+        start = time.perf_counter()
+        cifar_main(common + ["--loss", "rmb", "--rep-w0", "1", "--rep-w1", "0",
+                             "--steps-per-chunk", str(2 * SCAN_K), "--skip-metrics",
+                             "--out-dir", out])
+        run = "sngan_rmb_5e-04_2e-04_k1.68_1.0_0.0"
+        recs = _cli_records(out, run)
+        sprite = os.path.join(out, "cifar_log", run, f"cifar_g_{run}_{2 * SCAN_K}_0.png")
+        assert os.path.getsize(sprite) > 0, "no sprite"
+    plain = [cuda_mmd.kernel_means_cuda.launches, cuda_mmd.kernel_means_backward_cuda.launches]
+    assert plain == [0, 0], f"rmb (1, 0): kernel-means counters {plain}"
+    assert np.isfinite(recs["loss_dis"])
+    log(f"[eval] cifar CLI --loss rmb --rep-w0 1 --rep-w1 0: {2 * SCAN_K} steps on the plain "
+        f"path (kernel-means counters {plain}) and the sprite, "
+        f"{time.perf_counter() - start:.1f} s; loss_dis {recs['loss_dis']:.5f}")
+    return counted
+
+
+def _card_vs_cpu(what: str, fn, dev, rtol: float = 1e-3, atol: float = 1e-5) -> float:
+    """``fn(device)`` on the card and on the CPU, TF32 off, every output at
+    ``rtol`` / ``atol``; returns the largest |card - CPU| as a share of the
+    tolerance, atol + rtol |CPU| (1 would be the limit)."""
+    got, want = tf32_off(lambda: (fn(dev), fn(torch.device("cpu"))))
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = np.asarray(g.cpu() if isinstance(g, torch.Tensor) else g, np.float64)
+        w = np.asarray(w.cpu() if isinstance(w, torch.Tensor) else w, np.float64)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=what)
+        worst = max(worst, float(np.max(np.abs(g - w) / (atol + rtol * np.abs(w)))))
+    return worst
+
+
+def check_metrics_on_card(dev) -> None:
+    """Phase 11: the metrics' device code on the card against the CPU, TF32
+    off, rtol 1e-3: the random-feature classifier at 32x32 (stride-2 SAME
+    pads 0/1) and 299x299, MS-SSIM at an even and an odd size, SWD on
+    draws made once on the CPU, the TF1 resize (32 to 299) and the
+    MS-SSIM score's resize (32 up and 512 down to 256); the GraphDef
+    executor on the committed narrow fixture (``tests/data``); then the
+    random-feature classifier's images/s on the card."""
+    from mmdgan_torch.metrics.graphdef import GraphDefModule
+    from mmdgan_torch.metrics.inception import RandomFeatureClassifier, resize_bilinear_tf1
+    from mmdgan_torch.metrics.msssim import ms_ssim
+    from mmdgan_torch.metrics.scores import resize_linear
+    from mmdgan_torch.metrics.swd import (
+        draw_directions,
+        draw_patch_index,
+        laplacian_pyramid,
+        sliced_wasserstein_distance,
+    )
+
+    rng = np.random.RandomState(11)
+    img = lambda n, size, c=3: (rng.rand(n, size, size, c).astype(np.float32) * 2 - 1)
+    small, large = img(64, 32), img(4, 299)
+    x180, x177 = (img(2, s) for s in (180, 177))
+    y180, y177 = (np.clip(x + rng.randn(*x.shape).astype(np.float32) * 0.1, -1, 1)
+                  for x in (x180, x177))
+    big = img(2, 512)
+    pyr = laplacian_pyramid(torch.tensor(small[:16]), 3)
+    gen = torch.Generator().manual_seed(0)
+    draws = [(draw_patch_index(lv.shape, 7, 512, gen, "cpu"),
+              draw_patch_index(lv.shape, 7, 512, gen, "cpu"),
+              draw_directions(7 * 7 * 3, 64, gen, "cpu")) for lv in pyr]
+    t = lambda a, d: torch.tensor(a, device=d)   # noqa: E731
+    checks = {
+        "random features 32x32": lambda d: RandomFeatureClassifier(device=d)(t(small, d)),
+        "random features 299x299": lambda d: RandomFeatureClassifier(device=d)(t(large, d)),
+        "ms_ssim 180 and 177": lambda d: [ms_ssim((t(x, d) + 1) * 127.5, (t(y, d) + 1) * 127.5)
+                                          for x, y in ((x180, y180), (x177, y177))],
+        "swd": lambda d: sliced_wasserstein_distance(
+            t(small[:16], d), t(small[16:32], d), num_patches=512, num_dirs=64,
+            draws=[tuple(tuple(i.to(d) for i in ix) if isinstance(ix, tuple) else ix.to(d)
+                         for ix in lv) for lv in draws]),
+        "resize_bilinear_tf1 32 -> 299": lambda d: resize_bilinear_tf1(t(small[:8], d), (299, 299)),
+        "ms_ssim score resize 32 -> 256, 512 -> 256": lambda d: [
+            resize_linear(t(small[:4], d), 256), resize_linear(t(big, d), 256)],
+    }
+    for what, fn in checks.items():
+        worst = _card_vs_cpu(what, fn, dev)
+        log(f"[metrics] {what}: card vs CPU within rtol 1e-3 / atol 1e-5 (the largest "
+            f"difference {worst:.3f} of the tolerance)")
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                           "narrow_inception.pb")
+    feed = img(16, 32)
+    worst = _card_vs_cpu("GraphDef executor", lambda d: GraphDefModule(
+        fixture, ["Mul:0"], ["logits:0", "pool_3:0"], device=d)(t(feed, d)), dev)
+    log(f"[metrics] GraphDef executor on {os.path.relpath(fixture)} "
+        f"({os.path.getsize(fixture)} bytes): logits and pool_3 card vs CPU within rtol 1e-3 / "
+        f"atol 1e-5 (the largest difference {worst:.3f} of the tolerance)")
+
+    clf = RandomFeatureClassifier(device=dev)
+    batch = t(img(BATCH, 32), dev)
+    ms = cuda_ms(lambda: clf(batch), 200, warmup=10)
+    log(f"[metrics] random-feature classifier on the card: {ms:.4f} ms per batch of {BATCH} "
+        f"at 32x32, {BATCH / ms * 1e3:.0f} images/s (CUDA events over 200 batches)")
+
+
+def optimizer_windows(device, name: str, bf16: bool, lr: float) -> tuple:
+    """The narrow f32 CIFAR model on ``device`` under optimizer ``name``
+    (sgd and momentum decaying 0.96 per step): one 'rmb' step (step 0 is
+    degenerate), then OPT_WINDOWS K=16 windows of 'rep' through
+    ``build_multi_step`` (on the card: the eager warm-up, the capture,
+    replays; on the CPU an eager loop), fed RandomState(8)'s batches and z.
+    Returns (every step's metrics, the parameters but the score layer's
+    bias, the sgd lr read at the final count, the optimizers' counts)."""
+    from mmdgan_torch.train.optim import SGD
+
+    rng = np.random.RandomState(8)
+    x = rng.randn(SCAN_K, OPT_BATCH, 32, 32, 3).clip(-1, 1).astype(np.float32)
+    z = rng.randn(SCAN_K, OPT_BATCH, 128).astype(np.float32)
+    opts = multi_opt_config([lr, lr], lr_decay_steps=1, optimizer=name, bf16_moments=bf16)
+    first, model = (SNGan(narrow_architecture(), loss_type=loss, compute_dtype=torch.float32,
+                          device=device) for loss in ("rmb", "rep"))
+    ts = init_train_state(first, 0, *opts, device=device)
+    ts, _ = build_train_step(first, *opts, device=device)(ts, {"x": x[0]},
+                                                          code_batch={"x": z[0]})
+    multi = build_multi_step(model, *opts, SCAN_K, device=device)
+    batches, codes = ({"x": torch.tensor(a, device=device)} for a in (x, z))
+    metrics = []
+    for _ in range(OPT_WINDOWS):
+        ts, m = multi(ts, batches, code_batches=codes)
+        metrics.append({k: v.cpu().numpy() for k, v in m.items()})
+    if device.type == "cuda":
+        graphs = multi.graphs   # the capture's call replays it too
+        assert (graphs.eager, graphs.captures, graphs.replays) == (1, 1, OPT_WINDOWS - 1)
+    for m in metrics:
+        m["s_x_mean"] = m["s_x_mean"] - m.pop("s_gen_mean")
+    params = [p.detach().cpu().numpy() for k, p in _named_leaves(ts.params) if "l8_s" not in k
+              or "bias" not in k]
+    lr_now = (float(opts[0].lr_at(ts.opt_state_dis.count)) if isinstance(opts[0], SGD)
+              else None)
+    return metrics, params, lr_now, (int(ts.opt_state_dis.count), int(ts.opt_state_gen.count))
+
+
+def _named_leaves(tree: dict, prefix: str = "") -> list:
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _named_leaves(v, f"{prefix}/{k}") if isinstance(v, dict) else [(f"{prefix}/{k}", v)]
+    return out
+
+
+def check_optimizer_windows(dev) -> None:
+    """Phase 11: for each optimizer (and bf16 slots for adam),
+    ``optimizer_windows`` on the card (graphed) and on the CPU (eager),
+    TF32 off: every step's metrics and the final parameters at rtol 1e-3 /
+    atol 1e-5, but the gradient norms: where generated scores are
+    near-duplicates (early steps), the kernel means' backward on the card
+    and its closed form on the CPU keep different pairs at raw distances
+    that round across 0 (``kernel_means_backward_atol``), which moved one
+    step's generator gradient norm by 1.4e-3 relative. sgd and momentum
+    read their lr from the device count inside the replays: a graph that
+    froze the lr of its capture would move the parameters by up to
+    0.96^-16 of the CPU's steps, and the lr read at the end is
+    lr * 0.96^(1 + 16 * OPT_WINDOWS)."""
+    for name, bf16, lr in OPTIMIZER_CASES:
+        start = time.perf_counter()
+        card, cpu = tf32_off(lambda: [optimizer_windows(d, name, bf16, lr)
+                                      for d in (dev, torch.device("cpu"))])
+        worst = 0.0
+        for w, (mg, mc) in enumerate(zip(card[0], cpu[0])):
+            for key in mc.keys() - {"grad_norm_dis", "grad_norm_gen"}:
+                np.testing.assert_allclose(mg[key], mc[key], rtol=1e-3, atol=1e-5,
+                                           err_msg=f"{name} bf16={bf16} window {w} {key}")
+        # bf16 slots: one element may round to the neighbouring bfloat16 (2^-8
+        # relative) on the two devices, and momentum's trace carries that
+        # 1 / (1 - 0.9) = 10 steps
+        atol = 1e-5 + (10 * lr * 2 ** -8 if bf16 else 0.0)
+        for g, c in zip(card[1], cpu[1]):
+            np.testing.assert_allclose(g, c, rtol=1e-3, atol=atol,
+                                       err_msg=f"{name} bf16={bf16} parameters")
+            worst = max(worst, float(np.max(np.abs(g - c) / (atol + 1e-3 * np.abs(c)))))
+        steps = 1 + SCAN_K * OPT_WINDOWS
+        assert card[3] == cpu[3] == (steps, steps), (card[3], cpu[3])
+        line = ""
+        if card[2] is not None:
+            want = lr * 0.96 ** steps
+            assert abs(card[2] - want) <= 1e-5 * want, (card[2], want)   # float32 pow
+            line = f"; lr at count {steps} {card[2]:.6e} = {lr} x 0.96^{steps}"
+        log(f"[optim] {name}{' bf16 slots' if bf16 else ''} lr {lr}: {OPT_WINDOWS} K={SCAN_K} "
+            f"windows (eager, capture, replay) on the card equal the CPU's eager steps at rtol "
+            f"1e-3 / atol 1e-5 on every step's metrics but the gradient norms and on the final "
+            f"parameters (atol {atol:.3g}; the largest difference {worst:.3f} of the "
+            f"tolerance){line}; "
+            f"{time.perf_counter() - start:.1f} s")
+
+
+def optimizer_steps_per_sec(dev, card: str) -> None:
+    """Phase 11: graphed steps/s of the full-width CIFAR rep model, b64 bf16,
+    under each optimizer (sgd and momentum decaying), OPT_MEASURE_CALLS
+    timed K=16 windows after the warm-up and the capture."""
+    rates = {}
+    for name, bf16 in (("sgd", False), ("momentum", False), ("rmsprop", False),
+                       ("adam", False), ("adam_tf1", False), ("adam", True)):
+        model = SNGan(cifar_architecture(), loss_type="rep")
+        opts = multi_opt_config([5e-4, 2e-4], optimizer=name, bf16_moments=bf16,
+                                target_step=100000)
+        ts = init_train_state(model, 0, *opts)
+        multi = build_multi_step(model, *opts, SCAN_K)
+        rng = np.random.RandomState(0)
+        batches = {"x": torch.tensor(rng.randn(SCAN_K, BATCH, 32, 32, 3).astype(np.float32)
+                                     .clip(-1, 1), device=dev)}
+        ts, m, sps = timed_windows(multi, ts, batches, measure=OPT_MEASURE_CALLS)
+        assert all(torch.isfinite(v).all() for v in m.values()), name
+        rates[name + (" bf16" if bf16 else "")] = round(sps, 2)
+        del model, ts, multi
+    log(f"[optim] cifar10 rep b{BATCH} bf16 graphed steps/s by optimizer "
+        f"({OPT_MEASURE_CALLS * SCAN_K} steps after {WARMUP_CALLS * SCAN_K}): "
+        f"{json.dumps(rates)}; "
+        f"card: {card}")
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace, chosen before
     # its first call (phase 6)
@@ -1244,9 +1540,14 @@ def main() -> int:
         + [check_accum_equals_fused(dev)])
     phase("10 window determinism", lambda: check_window_determinism(dev))
     phase("10 cli", check_family_cli)
+    eval_launches = phase("11 eval cli", lambda: run_eval_cli(dev, card))
+    phase("11 metrics", lambda: check_metrics_on_card(dev))
+    phase("11 optimizer windows", lambda: check_optimizer_windows(dev))
+    phase("11 optimizer steps/s", lambda: optimizer_steps_per_sec(dev, card))
     for i, kernel in enumerate(kernels):
         kernel["launches"] = (sum(launches[i] for launches, _ in runs.values()) + loss_launches[i]
-                              + sum(f[i] for f in family_launches) + hd_launches[i])
+                              + sum(f[i] for f in family_launches) + hd_launches[i]
+                              + eval_launches[i])
 
     log(f"[timing] seconds by phase: {json.dumps(seconds)}")
     log(json.dumps({"kernels": kernels}))

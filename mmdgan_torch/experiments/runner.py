@@ -1,16 +1,23 @@
 """The experiment runner of the port (``experiments/runner.py:20-345``): the
-my_test_*.py protocol as a CLI, train N chunks and log the SN sigmas
-after each, on one device (``--device``, ``cuda`` by default).
+my_test_*.py protocol as a CLI on one device (``--device``, ``cuda`` by
+default). Each of N chunks trains, logs the SN sigmas, writes a 20x20
+sprite from the fixed ``code_x`` (unless ``--skip-sampling``) and, in a
+full run (``--debug-mode false``, no ``--skip-metrics``), scores IS(real),
+IS(gen), FID(real, real) and FID(real, gen) over ``--eval-batches``
+batches as ``eval/*`` scalars, the seconds of each part as ``time/eval_*``.
 
-The flags are the JAX runner's, with its defaults. ``--micro-batches M``
-runs the accumulated step (``build_grad_accum_step``), host-fed or, with
-``--device-dataset``, inside the device-data windows; ``--imbalanced-update``
-runs inside ``--steps-per-call`` windows, its flags computed on the
-device. A flag whose module is not ported yet raises and names its ROADMAP
-item: the eval sampling and the IS/FID scores (A14: a run needs
-``--skip-sampling --skip-metrics``), ``--use-pallas`` (the TPU kernel; the
-port always runs its own CUDA kernel-means kernel, B1),
-``--compilation-cache`` (A16), ``--bf16-moments`` (A7) and
+The flags are the JAX runner's, with its defaults. ``--optimizer`` takes
+adam, adam_tf1, sgd, momentum and rmsprop (sgd and momentum decay to
+``--end-lr`` over chunks x steps), ``--bf16-moments`` stores their slots in
+bfloat16. ``--micro-batches M`` runs the accumulated step
+(``build_grad_accum_step``), host-fed or, with ``--device-dataset``, inside
+the device-data windows; ``--imbalanced-update`` runs inside
+``--steps-per-call`` windows, its flags computed on the device.
+``--inception-pb`` gives the frozen classifier graph; without it the
+scores come from random features, comparable only within the port. A flag
+whose module is not ported yet raises and names its ROADMAP item:
+``--use-pallas`` (the TPU kernel; the port always runs its own CUDA
+kernel-means kernel, B1), ``--compilation-cache`` (A16) and
 ``--num-class``/``--sample-same-class`` (A13/A12). ``--loss`` takes every
 name of the loss dispatcher.
 """
@@ -38,9 +45,10 @@ def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--lr-gen", type=float, default=2e-4)
     p.add_argument("--end-lr", type=float, default=1e-7,
                    help="end of the decay schedules of SGD/momentum (adam keeps its lr)")
-    p.add_argument("--optimizer", default="adam")
+    p.add_argument("--optimizer", default="adam",
+                   help="adam | adam_tf1 | sgd | momentum | rmsprop")
     p.add_argument("--bf16-moments", action="store_true",
-                   help="bfloat16 optimizer slots (not ported: ROADMAP A7)")
+                   help="store the optimizer slots (Adam m/v, momentum, RMS) in bfloat16")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--act-k", type=float, default=None,
                    help="activation compensation multiplier (default per dataset)")
@@ -104,13 +112,9 @@ def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Raise for a flag whose module the port does not have yet."""
     unported = [
-        (not (args.skip_sampling and args.skip_metrics),
-         "eval sampling and IS/FID scores are not ported yet (ROADMAP A14): "
-         "pass --skip-sampling --skip-metrics"),
         (args.use_pallas, "--use-pallas selects the TPU's Pallas kernel; the port runs "
                           "its CUDA kernel-means kernel (ROADMAP B1)"),
         (bool(args.compilation_cache), "--compilation-cache is not ported yet (ROADMAP A16)"),
-        (args.bf16_moments, "--bf16-moments is not ported yet (ROADMAP A7)"),
         (args.num_class >= 2, "conditional models (--num-class) are not ported yet "
                               "(ROADMAP A13)"),
         (args.sample_same_class, "--sample-same-class is not ported yet (ROADMAP A12)"),
@@ -150,6 +154,8 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
         cfg = cfg.with_updates(data_dir=args.data_dir)
     if args.out_dir:
         cfg = cfg.with_updates(output_dir=args.out_dir)
+    if args.inception_pb:
+        cfg = cfg.with_updates(inception_pb=args.inception_pb)
     set_config(cfg)
     device = resolve_device(args.device)
 
@@ -191,7 +197,9 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
                              shuffle_file=shuffle_file, device_decode=not args.host_decode,
                              ).shape2image(c, h, w).next_batch()
 
-    opt_d, opt_g = multi_opt_config(lr_list, optimizer=args.optimizer)
+    opt_d, opt_g = multi_opt_config(lr_list, end_lr=args.end_lr, optimizer=args.optimizer,
+                                    target_step=args.chunks * args.steps_per_chunk,
+                                    bf16_moments=args.bf16_moments)
     ts = init_train_state(model, args.seed, opt_d, opt_g, device=device)
     use_device_data = args.device_dataset and not args.synthetic_data
     # the device-resident path builds its own step in train_device_data
@@ -211,6 +219,7 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
         print(f"Device-resident dataset: x{device_data['x'].shape} {device_data['x'].dtype} "
               f"({device_data['x'].nbytes / 2**20:.1f} MiB to the device)", flush=True)
 
+    code_x = np.random.RandomState(args.seed).randn(400, model.code_size).astype(np.float32)
     # assumed TF1-GPU reference throughput at this resolution (bench.py
     # BASELINES: 12 steps/s at 32x32, scaled by pixel count)
     baseline_sps = 12.0 * (32.0 / max(h, w)) ** 2
@@ -243,6 +252,27 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
         # per-layer spectral norms (reference kernel_norm summaries)
         norms = model.Dis.kernel_norms(ts.params["dis"], ts.net_state["dis"])
         agent.writer.scalars(gstep, {f"sigma/{k}": v for k, v in norms.items()})
+        if not args.skip_sampling:
+            model.eval_sampling(ts.params, ts.net_state, agent.filename, sub_folder,
+                                mesh_num=(20, 20), mesh_mode=0, code_x=code_x, do_sprite=True,
+                                do_embedding=False, get_dis_score=False,
+                                output_dir=cfg.output_dir, global_step=gstep)
+        if debug_mode is False and not args.skip_metrics:
+            seconds = {}
+            scores = model.mdl_score(
+                ts.params, ts.net_state, make_data_iter(), batch_size=args.batch_size,
+                num_batch=args.eval_batches, model="v1", model_path=cfg.inception_pb,
+                generator=torch.Generator(device).manual_seed(1000 + chunk), seconds=seconds)
+            print(f"Chunk {chunk} scores (inc_x, inc_g, fid_xx, fid_xg): {scores}; seconds "
+                  f"by part: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}",
+                  flush=True)
+            agent.writer.scalars(gstep, {
+                "eval/inception_real": scores[0],
+                "eval/inception_gen": scores[1],
+                "eval/fid_xx": scores[2],
+                "eval/fid_xg": scores[3],
+            })
+            agent.writer.scalars(gstep, {f"time/eval_{k}": v for k, v in seconds.items()})
     agent.writer.flush()
     if train_steps > 0 and train_seconds > 0:
         sps = train_steps / train_seconds

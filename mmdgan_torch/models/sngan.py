@@ -255,3 +255,141 @@ class SNGan:
             **loss_aux,
         }
         return loss_gen, loss_dis, dis_state, new_loss_state, aux
+
+    # ------------------------------------------------------------------
+    # evaluation (my_sngan.py:499-649)
+    # ------------------------------------------------------------------
+    def eval_sampling(
+        self,
+        params: Dict,
+        state: Dict,
+        filename: str,
+        sub_folder: str,
+        mesh_num: Tuple[int, int] = (10, 10),
+        mesh_mode=0,
+        code_x=None,
+        real_batch: Optional[Dict] = None,
+        get_dis_score: bool = True,
+        do_sprite: bool = True,
+        do_embedding: bool = False,
+        if_invert: bool = False,
+        generator: Optional[torch.Generator] = None,
+        output_dir: Optional[str] = None,
+        global_step: int = 0,
+    ) -> Dict:
+        """A sample grid from ``code_x`` or MeshCode latents (drawn from the
+        CPU ``generator``); writes the sprite PNGs and, with
+        ``do_embedding``, a TensorBoard-projector embedding of the scores
+        (``mmdgan_tpu/models/sngan.py:449-533``). Returns the file paths and
+        arrays (``x_gen``, ``s_x``, ``s_gen`` as numpy)."""
+        from mmdgan_torch.ops.mesh_code import MeshCode
+        from mmdgan_torch.utils.folders import prepare_folder
+        from mmdgan_torch.utils.sprite import embedding_image_wrapper, write_sprite_wrapper
+
+        _, summary_folder, _ = prepare_folder(filename, sub_folder=sub_folder,
+                                              set_folder=output_dir)
+        batch_size = mesh_num[0] * mesh_num[1]
+        if code_x is None:
+            code_x = MeshCode(self.code_size, mesh_num=mesh_num).get_batch(
+                mesh_mode, generator=generator)
+        code_batch = self.sample_codes(None, batch_size, code_x)
+        x_gen = self.generate(params, state, code_batch=code_batch)
+        out = {"x_gen": x_gen.cpu().numpy()}
+        real_x = None
+        if real_batch is not None:
+            real_x = decode_image_batch(
+                {"x": torch.as_tensor(real_batch["x"], device=self.device)})["x"]
+            real_np = real_x.cpu().numpy()
+
+        if get_dis_score and real_x is not None:
+            with torch.no_grad():
+                scores = self.discriminate(params, state, torch.cat([real_x, x_gen], dim=0))
+            out["s_x"], out["s_gen"] = (s.cpu().numpy() for s in torch.chunk(scores, 2))
+
+        index = f"{sub_folder}_{global_step}_{mesh_mode}"
+        if do_sprite:
+            if real_x is not None:
+                out["sprite_real"] = write_sprite_wrapper(
+                    real_np, mesh_num, filename, file_folder=summary_folder,
+                    file_index=f"_r_{index}", if_invert=if_invert)
+            out["sprite_gen"] = write_sprite_wrapper(
+                out["x_gen"], mesh_num, filename, file_folder=summary_folder,
+                file_index=f"_g_{index}", if_invert=if_invert)
+
+        if do_embedding and "s_x" in out:
+            labels = np.concatenate([np.ones(batch_size, np.int64),
+                                     np.zeros(batch_size, np.int64)])
+            out["embedding"] = embedding_image_wrapper(
+                np.concatenate([out["s_x"], out["s_gen"]], axis=0), filename,
+                var_name="x_vs_xg", file_folder=summary_folder,
+                file_index=f"_x_vs_xg_{index}", labels=labels,
+                images=np.concatenate([real_np, out["x_gen"]], axis=0),
+                mesh_num=(mesh_num[0] * 2, mesh_num[1]), if_invert=if_invert)
+        return out
+
+    def mdl_score(
+        self,
+        params: Dict,
+        state: Dict,
+        real_batches,
+        batch_size: int = 64,
+        num_batch: int = 10,
+        model: str = "v1",
+        model_path: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+        classifier: Optional[Callable] = None,
+        seconds: Optional[Dict[str, float]] = None,
+    ):
+        """IS/FID, or MS-SSIM, of the model's samples against real batches
+        (``mmdgan_tpu/models/sngan.py:535-590``; my_sngan.py:602-649).
+
+        :param real_batches: an iterator of batches, ``{'x': [B,H,W,C]}`` or
+            the array, uint8 or float, on the host or the device
+        :param model: 'v1' (IS + FID) or 'ms_ssim'
+        :param generator: the z stream's generator on ``self.device`` (JAX
+            takes ``PRNGKey(1000 + chunk)``; the CLI seeds this so); every
+            generated stream restarts from its state at the call
+        :param classifier: replaces the default ``InceptionClassifier``
+        :param seconds: filled with the time of each part (see
+            ``GenerativeModelMetric``)
+        """
+        from mmdgan_torch.metrics.scores import GenerativeModelMetric
+
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        start_state = generator.get_state()
+
+        def gen_stream():
+            g = torch.Generator(self.device)
+            g.set_state(start_state)
+            while True:
+                yield self.generate(params, state, g, batch_size)
+
+        def real_stream():
+            for b in real_batches:
+                x = b["x"] if isinstance(b, dict) else b
+                yield decode_image_batch({"x": torch.as_tensor(x, device=self.device)})["x"]
+
+        if model == "v1":
+            metric = GenerativeModelMetric(classifier, model="v1", model_path=model_path,
+                                           device=self.device)
+            return metric.inception_score_and_fid(real_stream(), gen_stream(),
+                                                  num_batch=num_batch, seconds=seconds)
+        if model == "ms_ssim":
+            # pairs within the real and within the generated batches
+            # (my_sngan.py:637-645). As in JAX: the two real streams share
+            # one iterator, so x takes the first halves of batches 0, 2, 4,
+            # ... and y the second halves of 1, 3, 5, ...; each generated
+            # stream restarts the generator, so both halves of a pair come
+            # from the same batch.
+            def halves(stream):
+                for b in stream:
+                    yield b[: len(b) // 2], b[len(b) // 2:]
+
+            score = GenerativeModelMetric.ms_ssim_score
+            score_data = score((a for a, _ in halves(real_stream())),
+                               (b for _, b in halves(real_stream())), num_batch=num_batch)
+            score_gen = score((a for a, _ in halves(gen_stream())),
+                              (b for _, b in halves(gen_stream())), num_batch=num_batch)
+            return score_data, score_gen
+        raise NotImplementedError(f"Model {model} not implemented.")

@@ -17,8 +17,10 @@ asks the host what a tensor holds, so every loss runs inside a CUDA graph.
 repulsive family (rep, rmb and their aliases, penalised and scaled) through
 ``cuda_mmd``'s kernel means: on CUDA tensors the hand-written kernels, on
 CPU tensors their plain versions; the penalty or the scale applies after
-the kernel. It defaults to True. The aux keys are the same with it on or
-off.
+the kernel. It defaults to True. The bounded loss takes it only for
+repulsive weights (w0 <= 0, w1 <= 0), which is all the kernel computes;
+other weights run the plain path, as JAX's default does. The aux keys are
+the same with it on or off.
 
 Like the JAX dispatcher, ``fixed_g_gp`` and ``fixed_t_gp`` raise here,
 though ``SNGan`` computes their penalty.
@@ -139,6 +141,15 @@ class GANLoss:
     use_fused_kernel: bool = True
     summary_histograms: bool = False
 
+    def __post_init__(self):
+        # The route of the repulsive family, decided once on Python floats:
+        # 'rep' fits the kernel means for any weights with w0 - w1 = 1; the
+        # bounded kernel implements the repulsive direction only (w0 <= 0,
+        # w1 <= 0), so other weights take the plain path, as in JAX.
+        w0, w1 = (float(w) for w in self.repulsive_weights)
+        self.fused_rep = bool(self.use_fused_kernel)
+        self.fused_rmb = bool(self.use_fused_kernel) and w0 <= 0 and w1 <= 0
+
     # ----- random draws ---------------------------------------------------
     def draw(self, loss_type: str, score_gen: torch.Tensor,
              generator: Optional[torch.Generator]) -> Dict[str, object]:
@@ -206,8 +217,8 @@ class GANLoss:
 
     def _repulsive(self, s_gen, s_x, batch_size, aux, bounded: bool):
         """'rep' and 'rmb' (the bounded kernel), through the kernel means
-        or the plain distance + kernel path."""
-        if self.use_fused_kernel:
+        or the plain distance + kernel path (``__post_init__`` picks)."""
+        if self.fused_rmb if bounded else self.fused_rep:
             fused = repulsive_mmd_g_bounded_fused if bounded else repulsive_mmd_g_fused
             loss_gen, loss_dis, e = fused(s_gen, s_x, sigma=1.0,
                                           repulsive_weights=tuple(self.repulsive_weights))

@@ -54,7 +54,7 @@ class TrainState:
     params: Dict[str, Any]        # {'gen': ..., 'dis': ...}
     net_state: Dict[str, Any]     # SN power vectors + BN statistics
     loss_state: LossState
-    opt_state_dis: Any
+    opt_state_dis: Any            # train.optim.OptState
     opt_state_gen: Any
     step: torch.Tensor
     rng: torch.Generator          # draws z when no code batch is given
@@ -71,5 +71,5 @@ class TrainState:
         out = tree_leaves(self.params) + tree_leaves(self.net_state)
         out += loss_state_leaves(self.loss_state)
         for opt in (self.opt_state_dis, self.opt_state_gen):
-            out += [opt.count] + tree_leaves(opt.mu) + tree_leaves(opt.nu)
+            out += opt.tensors()
         return out + [self.step]

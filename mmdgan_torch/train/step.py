@@ -7,7 +7,7 @@
   the updates: a Python bool with an ``if``, so a skipped update leaves
   its optimizer slots untouched; a 0-d bool tensor on the device (the
   imbalanced window's flags, inside a CUDA graph) by selection
-  (``Adam.gated_update_``), with the same result bit for bit. SN vectors
+  (``Optimizer.gated_update_``), with the same result bit for bit. SN vectors
   and BN statistics update every step. The step updates the TrainState
   in place, every tensor in its own buffer, and returns it with the
   step's metrics as 0-d tensors on the device; reading them is the
@@ -46,11 +46,11 @@ from mmdgan_torch.models.sngan import (
     jacobian_squared_frobenius_norm,
     to_nchw,
 )
-from mmdgan_torch.train.optim import Adam
+from mmdgan_torch.train.optim import Optimizer
 from mmdgan_torch.train.state import TrainState, copy_tree_, loss_state_leaves, tree_leaves
 
 
-def init_train_state(model: SNGan, seed: int, opt_dis: Adam, opt_gen: Adam,
+def init_train_state(model: SNGan, seed: int, opt_dis: Optimizer, opt_gen: Optimizer,
                      device: DeviceLike = None) -> TrainState:
     """Fresh state from ``seed``: the model's init and the step's z stream."""
     dev = check_device(model.device, device)
@@ -79,16 +79,16 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
 
 
-def _update(opt: Adam, do, leaves, grads, opt_state) -> None:
+def _update(opt: Optimizer, do, leaves, grads, opt_state) -> None:
     """One optimizer update gated by ``do``: a Python bool by ``if``, a 0-d
-    bool tensor (a flag on the device) by ``Adam.gated_update_``."""
+    bool tensor (a flag on the device) by ``Optimizer.gated_update_``."""
     if isinstance(do, torch.Tensor):
         opt.gated_update_(leaves, grads, opt_state, do)
     elif do:
         opt.update_(leaves, grads, opt_state)
 
 
-def build_train_step(model: SNGan, opt_dis: Adam, opt_gen: Adam,
+def build_train_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
                      device: DeviceLike = None) -> Callable:
     """Returns ``train_step(ts, data_batch, do_dis=True, do_gen=True,
     code_batch=None) -> (ts, metrics)``. ``data_batch['x']`` is NHWC
@@ -129,8 +129,8 @@ def build_train_step(model: SNGan, opt_dis: Adam, opt_gen: Adam,
     return train_step
 
 
-def build_grad_accum_step(model: SNGan, opt_dis: Adam, opt_gen: Adam, micro_batches: int,
-                          device: DeviceLike = None) -> Callable:
+def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
+                          micro_batches: int, device: DeviceLike = None) -> Callable:
     """One optimizer step over a global batch run in M micro-batches
     (``mmdgan_tpu/train/step.py:157-473``): batches whose activations
     outgrow the card, at 1/M of the activation memory for about twice the
@@ -487,7 +487,7 @@ def graph_steps(step: Callable, num_steps: int, capture: Optional[bool] = None) 
     return multi_step
 
 
-def build_multi_step(model: SNGan, opt_dis: Adam, opt_gen: Adam, num_steps: int,
+def build_multi_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer, num_steps: int,
                      device: DeviceLike = None, capture: Optional[bool] = None) -> Callable:
     """K train steps per call over a K-stacked batch (``graph_steps`` of
     ``build_train_step``): one CUDA graph launch per call on CUDA, the
@@ -516,7 +516,7 @@ def imbalanced_scan(step: Callable, num_steps: int, imbalanced,
     place (JAX returns new ones) and are bound to the graphs.
     ``metrics['do_dis']`` is stacked like the other scalars. The flags
     reach ``step`` as 0-d bool tensors, so its updates are gated by
-    selection (``Adam.gated_update_``)."""
+    selection (``Optimizer.gated_update_``)."""
     is_list = isinstance(imbalanced, (list, tuple))
     if not is_list and imbalanced != "dynamic":
         raise ValueError(f"imbalanced schedule {imbalanced!r} not supported")
@@ -553,8 +553,8 @@ def imbalanced_scan(step: Callable, num_steps: int, imbalanced,
     return multi_step
 
 
-def build_imbalanced_multi_step(model: SNGan, opt_dis: Adam, opt_gen: Adam, num_steps: int,
-                                imbalanced, device: DeviceLike = None,
+def build_imbalanced_multi_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
+                                num_steps: int, imbalanced, device: DeviceLike = None,
                                 capture: Optional[bool] = None) -> Callable:
     """``imbalanced_scan`` of ``build_train_step``."""
     return imbalanced_scan(build_train_step(model, opt_dis, opt_gen, device), num_steps,
@@ -563,8 +563,8 @@ def build_imbalanced_multi_step(model: SNGan, opt_dis: Adam, opt_gen: Adam, num_
 
 def build_device_data_step(
     model: SNGan,
-    opt_dis: Adam,
-    opt_gen: Adam,
+    opt_dis: Optimizer,
+    opt_gen: Optimizer,
     num_steps: int,
     batch_size: int,
     same_class: bool = False,

@@ -2,8 +2,9 @@
 and ``train/trainer.py:209-245``).
 
 One file per step, ``ckpt-<step>.pt`` in the run's checkpoint folder,
-written by ``torch.save`` of a dict of tensors: parameters, both Adam
-states (``mu``, ``nu``, ``count``), SN vectors and BN statistics, the
+written by ``torch.save`` of a dict of tensors: parameters, both
+optimizer states (``count`` and each slot tree, float32 or bfloat16), SN
+vectors and BN statistics, the
 loss state, ``step`` and the z generator's state. That is the reference
 Saver's coverage. A file is written under a temporary name and renamed,
 so a reader sees all of it or nothing; the oldest are removed beyond
@@ -50,7 +51,7 @@ def _detached(tree: Dict) -> Dict:
 
 
 def state_dict(ts: TrainState) -> Dict:
-    opt = lambda s: {"count": s.count, "mu": _detached(s.mu), "nu": _detached(s.nu)}
+    opt = lambda s: {"count": s.count, **{k: _detached(v) for k, v in s.slots.items()}}
     return {"params": _detached(ts.params), "net_state": ts.net_state,
             "loss_state": loss_state_leaves(ts.loss_state),
             "opt_state_dis": opt(ts.opt_state_dis), "opt_state_gen": opt(ts.opt_state_gen),
@@ -77,7 +78,8 @@ def restore_into(ts: TrainState, path: str) -> TrainState:
     stored = tree_leaves(saved["params"]) + tree_leaves(saved["net_state"]) + saved["loss_state"]
     for name in ("opt_state_dis", "opt_state_gen"):
         opt = saved[name]
-        stored += [opt["count"]] + tree_leaves(opt["mu"]) + tree_leaves(opt["nu"])
+        stored += [opt["count"]] + [t for k in sorted(opt) if k != "count"
+                                    for t in tree_leaves(opt[k])]
     stored.append(saved["step"])
     leaves = ts.tensors()
     if len(leaves) != len(stored):

@@ -1,4 +1,4 @@
-"""Map the JAX package's parameter, state and Adam trees onto the port's.
+"""Map the JAX package's parameter, state and optimizer trees onto the port's.
 
 The trees come in as numpy (callers run ``jax.device_get`` first), so
 this module imports no JAX. Conversions (``utils/tf1_import.py`` does the
@@ -13,8 +13,11 @@ inverse permutations and is the model followed here):
   and bias before an image ``out_reshape`` are permuted;
 - power vectors NHWC -> NCHW; a dense one gets the permutation of the
   side it lives on;
-- Adam ``mu``/``nu`` like their parameters, ``count`` as a 0-d int32
-  tensor;
+- optimizer slots like their parameters (optax adam's ``mu``/``nu``,
+  ``adam_tf1``'s ``m``/``v``, momentum's ``trace``, rmsprop's ``nu``; bf16
+  slots stay bf16), ``count`` as a 0-d int32 tensor (optax adam's count,
+  the schedule's of sgd/momentum, ``adam_tf1``'s ``t``; rmsprop has none
+  and gets 0);
 - the ``LossState`` (moving loss average, mix probability, instance-noise
   sigma) as 0-d float32 tensors.
 """
@@ -31,7 +34,7 @@ from mmdgan_torch.models.layers import Layer
 from mmdgan_torch.models.sngan import SNGan
 from mmdgan_torch.ops.losses import LossState
 from mmdgan_torch.ops.spectral_norm import use_u
-from mmdgan_torch.train.optim import AdamState
+from mmdgan_torch.train.optim import Adam, Optimizer, OptState
 
 
 def hwc_to_chw_perm(c: int, h: int, w: int) -> np.ndarray:
@@ -89,7 +92,7 @@ def _state(op, name: str, a: np.ndarray, rows, cols) -> np.ndarray:
     return a if perm is None else a[:, perm]
 
 
-def _convert(model: SNGan, tree: Dict, leaf_fn, device) -> Dict:
+def _convert(model: SNGan, tree: Dict, leaf_fn, device, dtype=torch.float32) -> Dict:
     out: Dict = {}
     for net_key, routine in (("gen", model.Gen), ("dis", model.Dis)):
         out[net_key] = {}
@@ -103,40 +106,75 @@ def _convert(model: SNGan, tree: Dict, leaf_fn, device) -> Dict:
                 op_name: {
                     name: torch.tensor(np.ascontiguousarray(
                         leaf_fn(op, name, np.asarray(a, np.float32), rows, cols)),
-                        device=device)
+                        device=device).to(dtype)
                     for name, a in src[op_name].items()}
                 for op_name, op in layer.ops.items() if op_name in src}
     return out
 
 
-def _adam(model: SNGan, opt_state, net_key: str, device) -> AdamState:
-    """The ``ScaleByAdamState`` inside an optax adam state, as AdamState."""
-    slots = opt_state if hasattr(opt_state, "mu") else next(
-        s for s in opt_state if hasattr(s, "mu"))
-    conv = lambda tree: _convert(model, {net_key: tree}, _param, device)[net_key]
-    count = torch.tensor(int(np.asarray(slots.count)), dtype=torch.int32, device=device)
-    return AdamState(count=count, mu=conv(slots.mu), nu=conv(slots.nu))
+def _optax_parts(opt_state) -> Tuple:
+    """(count or None, {field: tree}) of an optax state of the JAX
+    package's optimizers: a chain's tuple of states, one state, or
+    ``adam_tf1``'s dict."""
+    if isinstance(opt_state, dict):
+        return opt_state["t"], {"m": opt_state["m"], "v": opt_state["v"]}
+    parts = (opt_state if isinstance(opt_state, tuple) and not hasattr(opt_state, "_fields")
+             else (opt_state,))
+    count, fields = None, {}
+    for part in parts:
+        for name in getattr(part, "_fields", ()):
+            if name == "count":
+                count = getattr(part, name) if count is None else count
+            else:
+                fields[name] = getattr(part, name)
+    return count, fields
+
+
+def _opt_state(model: SNGan, opt_state, opt: Optimizer, net_key: str, device) -> OptState:
+    """The slots ``opt`` keeps, taken from an optax state, as an OptState."""
+    count, fields = _optax_parts(opt_state)
+    dtype = torch.bfloat16 if opt.bf16_slots else torch.float32
+    conv = lambda tree: _convert(model, {net_key: tree}, _param, device, dtype)[net_key]
+    count = 0 if count is None else int(np.asarray(count))
+    return OptState(count=torch.tensor(count, dtype=torch.int32, device=device),
+                    slots={name: conv(fields[name]) for name in opt.slot_names})
 
 
 def jax_params_to_torch(model: SNGan, params: Dict, net_state: Dict,
                         opt_states: Optional[Tuple] = None, device="cpu",
-                        loss_state=None):
+                        loss_state=None, optimizers: Optional[Tuple] = None):
     """Convert numpy trees of the JAX package into the port's layout.
 
     :param model: the port's SNGan of the same architecture
-    :param opt_states: optional ``(opt_state_dis, opt_state_gen)`` of optax adam
+    :param opt_states: optional ``(opt_state_dis, opt_state_gen)`` of the
+        JAX package's optimizers
+    :param optimizers: the port's ``(opt_dis, opt_gen)`` for ``opt_states``,
+        which say what slots to keep and their dtype; Adam when not given
     :param loss_state: optional JAX ``LossState`` (any object with its
         three fields)
-    :returns: ``(params, net_state)``, plus ``(AdamState dis, AdamState gen)``
+    :returns: ``(params, net_state)``, plus ``(OptState dis, OptState gen)``
         when ``opt_states`` is given, plus the port's ``LossState`` when
         ``loss_state`` is given
     """
     out = (_convert(model, params, _param, device), _convert(model, net_state, _state, device))
     if opt_states is not None:
-        out += ((_adam(model, opt_states[0], "dis", device),
-                 _adam(model, opt_states[1], "gen", device)),)
+        opts = optimizers if optimizers is not None else (Adam(0.0), Adam(0.0))
+        out += (tuple(_opt_state(model, state, opt, net_key, device)
+                      for state, opt, net_key in zip(opt_states, opts, ("dis", "gen"))),)
     if loss_state is not None:
         out += (LossState(**{f.name: torch.tensor(np.asarray(getattr(loss_state, f.name)),
                                                   dtype=torch.float32, device=device)
                              for f in dataclasses.fields(LossState)}),)
     return out
+
+
+def jax_random_classifier_to_torch(kernels, w_pool, w_log, device="cpu"):
+    """The JAX package's ``RandomFeatureClassifier`` weights (its four HWIO
+    conv kernels, ``w_pool``, ``w_log``, as numpy; ``inception.py:150-180``)
+    in the port's ``RandomFeatureClassifier`` on ``device``."""
+    from mmdgan_torch.metrics.inception import RandomFeatureClassifier
+
+    w_pool, w_log = np.asarray(w_pool, np.float32), np.asarray(w_log, np.float32)
+    return RandomFeatureClassifier(
+        pool_dim=w_pool.shape[1], num_logits=w_log.shape[1], device=device,
+        weights=([np.asarray(k, np.float32) for k in kernels], w_pool, w_log))

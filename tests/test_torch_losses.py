@@ -193,3 +193,36 @@ def test_fixed_bin_histogram_edges_and_clipping():
     counts = fixed_bin_histogram(x, 0.0, 16.0)
     assert counts.shape == (64,) and counts.dtype == torch.float32
     assert counts.sum() == 7 and counts[0] == 3 and counts[1] == 1 and counts[63] == 3
+
+
+@pytest.mark.parametrize("loss_type", ["rmb", "rmb_gp", "rmb_ds", "rep"])
+@pytest.mark.parametrize("weights", [[1.0, 0.0], [2.0, 1.0]])
+def test_non_repulsive_weights_take_the_plain_path(loss_type, weights):
+    """At the default flag, the bounded loss with weights outside the
+    kernel's repulsive direction (w0 > 0 or w1 > 0) trains as in JAX, on
+    the plain path; 'rep' keeps the kernel means for any w0 - w1 = 1. The
+    scores sit apart (data shifted by 1.5), so neither loss cancels."""
+    rng = np.random.RandomState(11)
+    sg = (rng.randn(16, 8) * 0.5).astype(np.float32)
+    sx = (rng.randn(16, 8) * 0.5 + 1.5).astype(np.float32)
+    kw = _kwargs(loss_type, 16, 8)
+    jkw = {k: jnp.float32(v) for k, v in kw.items() if k in ("dis_penalty", "dis_scale")}
+    jlg, jld, _, jaux = jax_gan_loss(jnp.asarray(sg), jnp.asarray(sx), loss_type,
+                                     batch_size=16, rep_weights=weights, **jkw)
+    loss = GANLoss(repulsive_weights=weights)
+    assert loss.use_fused_kernel
+    assert loss.fused_rmb is False and loss.fused_rep is True
+    a, c = torch.tensor(sg, requires_grad=True), torch.tensor(sx, requires_grad=True)
+    lg, ld, _, aux = loss.apply(a, c, loss_type, **{k: torch.tensor(v) if isinstance(v, float)
+                                                     else v for k, v in kw.items()})
+    assert abs(float(jld)) > 1e-2 and abs(float(jlg)) > 1e-2
+    np.testing.assert_allclose(lg.item(), float(jlg), **LOSS, err_msg="loss_gen")
+    np.testing.assert_allclose(ld.item(), float(jld), **LOSS, err_msg="loss_dis")
+    assert set(aux) == set(jaux)
+    for k in aux:
+        np.testing.assert_allclose(aux[k].item(), float(jaux[k]), **VAL, err_msg=k)
+    jgrads = jax.grad(lambda p, q: jax_gan_loss(p, q, loss_type, batch_size=16,
+                                                rep_weights=weights, **jkw)[1],
+                      argnums=(0, 1))(jnp.asarray(sg), jnp.asarray(sx))
+    for g, jg in zip(torch.autograd.grad(ld, (a, c)), jgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), **GRAD)

@@ -447,13 +447,16 @@ def test_cifar_cli_other_loss_with_histograms(tmp_path):
     assert sum(hists["hist/d_xy"]["counts"]) == 16 and sum(hists["hist/score_x"]["counts"]) == 64
 
 
+# the eval path (A14) and --bf16-moments (A7) run now (tests/test_torch_eval.py,
+# tests/test_torch_optim.py); the other cases keep their ids
 @pytest.mark.parametrize("flags,item", [
-    ([], "A14"),
-    (["--skip-sampling", "--skip-metrics", "--use-pallas"], "B1"),
-    (["--skip-sampling", "--skip-metrics", "--compilation-cache", "cache"], "A16"),
-    (["--skip-sampling", "--skip-metrics", "--bf16-moments"], "A7"),
-    (["--skip-sampling", "--skip-metrics", "--num-class", "10"], "A13"),
-    (["--skip-sampling", "--skip-metrics", "--sample-same-class"], "A12"),
+    pytest.param(["--skip-sampling", "--skip-metrics", "--use-pallas"], "B1", id="flags1-B1"),
+    pytest.param(["--skip-sampling", "--skip-metrics", "--compilation-cache", "cache"], "A16",
+                 id="flags2-A16"),
+    pytest.param(["--skip-sampling", "--skip-metrics", "--num-class", "10"], "A13",
+                 id="flags4-A13"),
+    pytest.param(["--skip-sampling", "--skip-metrics", "--sample-same-class"], "A12",
+                 id="flags5-A12"),
 ])
 def test_cifar_cli_refuses_unported_flags(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
