@@ -93,6 +93,26 @@ Phases, each fatal on failure:
      the narrow f32 model card vs CPU, sgd and momentum decaying their lr
      on the device across the replays; graphed steps/s of the full-width
      model by optimizer.
+12. the class-conditional models and the layer catalogue:
+   - ``cifar_architecture(conditional=True)`` at full width (cbn
+     generator, dck head, 10 classes), rep b64 bf16, host labels,
+     graphed K=16: steps/s over 128 timed steps, one profiled replay
+     (device busy, idle share, activities, 1 + 2 kernel-means launches
+     per step), the cbn and dck parameters moved;
+   - same-class device data over a seeded 50,000-row labelled uint8
+     array (5,000 per class): 256 batches of each sampler read on the
+     card, each one class; steps/s of labelled uniform, same-class
+     uniform and same-class shuffled-epochs (class schedule) windows;
+     under deterministic algorithms graphed = eager windows and an
+     ``Agent.train_device_data(sample_same_class=True)`` resume = a
+     straight run, bitwise;
+   - card vs CPU, TF32 off, rtol 1e-3: three f32 steps of narrow
+     conditional models holding every conditional op, the catalogue
+     model's forward and one step, the lrn/k/pooling ops and a
+     split/concat/sum Routine;
+   - the conditional cifar CLI with ``--sample-same-class`` on synthetic
+     data, host-fed over a labelled tfrecord, and from the card, in three
+     subprocesses side by side.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -131,14 +151,18 @@ from mmdgan_torch.ops import _build, cuda_mmd  # noqa: E402
 from mmdgan_torch.ops.losses import LossState  # noqa: E402
 from mmdgan_torch.train.optim import OptState, multi_opt_config  # noqa: E402
 from mmdgan_torch.train.state import TrainState, loss_state_leaves, tree_leaves, tree_map  # noqa: E402
+from mmdgan_torch.models.network import Net, Routine  # noqa: E402
+from mmdgan_torch.models.ops import ParametricOp  # noqa: E402
 from mmdgan_torch.train.step import (  # noqa: E402
     build_device_data_step,
     build_grad_accum_step,
     build_imbalanced_multi_step,
     build_multi_step,
     build_train_step,
+    class_schedule,
     graph_steps,
     init_train_state,
+    same_class_tables,
 )
 from mmdgan_torch.train.trainer import Agent  # noqa: E402
 
@@ -402,10 +426,11 @@ def narrow_architecture() -> dict:
     return arch
 
 
-def narrow_metrics(device, loss_type: str, micro: int = None, arch: dict = None) -> list:
+def narrow_metrics(device, loss_type: str, micro: int = None, arch: dict = None,
+                   n_steps: int = 3) -> list:
     """float32 steps of a narrow model (``narrow_architecture`` unless
     ``arch``) on ``device`` from the state of seed 0: one fused 'rmb' step,
-    then three steps of ``loss_type``, fused or accumulated over ``micro``
+    then ``n_steps`` steps of ``loss_type``, fused or accumulated over ``micro``
     micro-batches, fed RandomState(7)'s batches, z and penalty weights.
     Returns the metrics of steps 1-3, the score means as their difference
     (the score layer's bias has no true gradient: a common shift of all
@@ -430,7 +455,7 @@ def narrow_metrics(device, loss_type: str, micro: int = None, arch: dict = None)
              build_grad_accum_step(model, opt_d, opt_g, micro, device=device)]
     ts = init_train_state(first, 0, opt_d, opt_g, device=device)
     metrics = []
-    for k in range(4):
+    for k in range(1 + n_steps):
         kw = {} if k == 0 or micro is None else {"uni": uni[k]}
         ts, m = steps[min(k, 1)](ts, {"x": x[k]}, code_batch={"x": z[k]}, **kw)
         metrics.append({key: v.item() for key, v in m.items()})
@@ -477,13 +502,14 @@ def check_against_cpu(dev, loss_type: str, micro: int = None) -> None:
 
 
 def main_path_setup(dev, loss_type: str, capture: bool = True, arch: dict = None,
-                    make_multi=build_multi_step) -> tuple:
+                    make_multi=build_multi_step, num_class: int = 0) -> tuple:
     """The full-width model (CIFAR-10 unless ``arch``) at bf16, its train
     state from seed 0, the K-step runner ``make_multi(model, opt_d, opt_g,
     K, capture=...)`` (graphed unless ``capture=False``) and one K-stacked
-    batch of noise from seed 0."""
+    batch of noise from seed 0, with labels from seed 0 for a conditional
+    model (``num_class`` >= 2)."""
     arch = cifar_architecture() if arch is None else arch
-    model = SNGan(arch, loss_type=loss_type)
+    model = SNGan(arch, num_class=num_class, loss_type=loss_type)
     opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
     ts = init_train_state(model, 0, opt_d, opt_g)
     multi = make_multi(model, opt_d, opt_g, SCAN_K, capture=capture)
@@ -491,6 +517,8 @@ def main_path_setup(dev, loss_type: str, capture: bool = True, arch: dict = None
     rng = np.random.RandomState(0)
     batches = {"x": torch.tensor(
         rng.randn(SCAN_K, BATCH, h, w, c).astype(np.float32).clip(-1, 1), device=dev)}
+    if num_class >= 2:
+        batches["y"] = torch.tensor(rng.randint(0, num_class, (SCAN_K, BATCH, 1)), device=dev)
     return model, ts, multi, batches
 
 
@@ -1489,6 +1517,393 @@ def optimizer_steps_per_sec(dev, card: str) -> None:
         f"card: {card}")
 
 
+# ----------------------------------------------------------------------
+# phase 12: the class-conditional models and the layer catalogue
+# ----------------------------------------------------------------------
+NUM_CLASS = 10                      # CIFAR-10's classes, 5,000 rows each
+SAMPLER_DRAWS = 256                 # batches whose labels are read on the card
+
+
+def _sn_layer(name: str, out, **kw) -> dict:
+    return {"name": name, "out": out, "act": "lrelu", "act_k": 1.3, "w_nm": "s", **kw}
+
+
+# a narrow 32x32 conditional model holding every conditional op: dcd, cbn,
+# tcck, c_bias and bcb in G; cck, c_bias, bcb, dcd and the dck head in D
+COND_OPS_ARCH = {
+    "input": [(3, 32, 32)],
+    "code": [(128, "linear")],
+    "generator": [
+        {"name": "l1", "out": 32 * 4 * 4, "op": "dcd", "act": "relu", "act_nm": "cbn",
+         "out_reshape": [32, 4, 4]},
+        {"name": "l2_up", "out": 16, "op": "tcck", "act": "relu", "act_nm": "cbn",
+         "kernel": 4, "strides": 2, "w_nm": "s"},
+        {"name": "l3_up", "out": 8, "op": "tc", "act": "relu", "bias": "c_bias",
+         "kernel": 4, "strides": 2},
+        {"name": "l4_up", "out": 8, "op": "tc", "act": "relu", "act_nm": "cbn",
+         "kernel": 4, "strides": 2},
+        {"name": "l5_t32", "out": 3, "act": "tanh", "bias": "bcb"},
+    ],
+    "discriminator": [
+        _sn_layer("l1", 8),
+        _sn_layer("l2_ds", 16, op="cck", kernel=4, strides=2),
+        _sn_layer("l3_ds", 16, kernel=4, strides=2, bias="c_bias"),
+        _sn_layer("l4_ds", 32, kernel=4, strides=2, bias="bcb", out_reshape=[4 * 4 * 32]),
+        _sn_layer("l5", 32, op="dcd"),
+        {"name": "l6_s", "out": 16, "op": "dck", "act_k": 1.3, "w_nm": "s"},
+    ],
+}
+# the projection head (tests/test_conditional.py's COND_ARCH at 32x32), hinge
+COND_PROJECT_ARCH = {
+    "input": [(3, 32, 32)],
+    "code": [(128, "linear")],
+    "generator": copy.deepcopy(COND_OPS_ARCH["generator"]),
+    "discriminator": [
+        _sn_layer("l1_ds", 8, kernel=4, strides=2),
+        _sn_layer("l2_ds", 16, kernel=4, strides=2, out_reshape=[8 * 8 * 16]),
+        {"name": "l3_s", "out": 1, "op": "d", "w_nm": "s", "type": "project"},
+    ],
+}
+# a narrow unconditional model through the rest of the catalogue: res,
+# res_v1, nl and nl_pool_dist blocks, every scaling method (bil, ps up,
+# unpool, bic in G; ps down, avg, max in D), the i and sc ops, an
+# asymmetric-SAME, a dilated and a VALID conv
+CATALOGUE_ARCH = {
+    "input": [(3, 32, 32)],
+    "code": [(128, "linear")],
+    "generator": [
+        {"name": "l1", "out": 32 * 2 * 2, "op": "d", "act": "linear", "out_reshape": [32, 2, 2]},
+        {"name": "l2_res", "type": "res", "out": 16, "kernel": [3, 3, 1], "act": "relu",
+         "act_nm": "bn", "scale": ["bil", 2]},
+        {"name": "l3_ps", "out": 16, "act": "relu", "act_nm": "bn", "scale": ["ps", 2]},
+        {"name": "l4_nl", "type": "nl", "out": [4, 4, 16], "kernel": [1, 1, 1],
+         "act": "linear", "act_nm": "bn"},
+        {"name": "l5_unpool", "out": 8, "act": "relu", "act_nm": "bn", "scale": ["unpool", 2]},
+        {"name": "l6_bic", "out": 8, "act": "relu", "scale": ["bic", 2]},
+        {"name": "l7_i", "op": "i", "act": "relu", "act_nm": "bn"},
+        {"name": "l8_sc", "out": 3, "op": "sc", "act": "tanh"},
+    ],
+    "discriminator": [
+        _sn_layer("l1_asym", 8, kernel=3, strides=2),
+        _sn_layer("l2_ps", 4, scale=["ps", -2]),
+        _sn_layer("l3_res_v1", 16, type="res_v1", kernel=[3, 3, 1], scale=["avg", -2]),
+        _sn_layer("l4_nl", [4, 4, 16], type="nl_pool_dist", kernel=[1, 1, 1], act="linear"),
+        _sn_layer("l5_dilated", 16, dilation=2),
+        _sn_layer("l6_res", 16, type="res", kernel=[3, 3, 1], scale=["max", -2]),
+        _sn_layer("l7_valid", 16, kernel=2, padding="VALID", out_reshape=[16]),
+        {"name": "l8_s", "out": 16, "op": "d", "act_k": 1.3, "w_nm": "s"},
+    ],
+}
+
+
+def labelled_metrics(device, arch: dict, loss_type: str, num_class: int) -> list:
+    """``narrow_metrics`` for a conditional model: float32 steps on
+    ``device`` from the state of seed 0 (a first 'rmb' step, or 'hinge' for
+    a projection head, then three of ``loss_type``), fed RandomState(7)'s
+    batches, labels, z and code labels."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(4, 8, 32, 32, 3).clip(-1, 1).astype(np.float32)
+    y = rng.randint(0, num_class, (4, 8, 1))
+    z = rng.randn(4, 8, 128).astype(np.float32)
+    zy = rng.randint(0, num_class, (4, 8, 1))
+    opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+    first_loss = "hinge" if arch["discriminator"][-1].get("type") == "project" else "rmb"
+    first, model = (SNGan(arch, num_class=num_class, loss_type=loss,
+                          compute_dtype=torch.float32, device=device)
+                    for loss in (first_loss, loss_type))
+    steps = [build_train_step(first, opt_d, opt_g, device=device),
+             build_train_step(model, opt_d, opt_g, device=device)]
+    ts = init_train_state(first, 0, opt_d, opt_g, device=device)
+    metrics = []
+    for k in range(4):
+        ts, m = steps[min(k, 1)](ts, {"x": x[k], "y": y[k]}, code_batch={"x": z[k], "y": zy[k]})
+        metrics.append({key: v.item() for key, v in m.items()})
+    for m in metrics:
+        m["s_x_mean"] -= m.pop("s_gen_mean")
+    return metrics[1:]
+
+
+def _forward(device, arch: dict, num_class: int = 0) -> list:
+    """G's images and D's train-mode scores of the float32 model of seed 0
+    on fixed inputs (and labels)."""
+    rng = np.random.RandomState(3)
+    model = SNGan(arch, num_class=num_class, compute_dtype=torch.float32, device=device)
+    params, state, _ = model.init(0)
+    y = None if num_class < 2 else rng.randint(0, num_class, (8, 1))
+    code = {"x": rng.randn(8, 128).astype(np.float32), "y": y}
+    x = rng.randn(8, 32, 32, 3).clip(-1, 1).astype(np.float32)
+    return [model.generate(params, state, code_batch=code).cpu().numpy(),
+            model.discriminate(params, state, {"x": x, "y": y}, train=True).detach().cpu().numpy()]
+
+
+def _small_checks(device) -> list:
+    """Outputs of the ops no layer reaches (lrn, the bounded k scalar), the
+    pooling ops, and a Routine of split, concat and sum links with its
+    gradients, float32, from RandomState(4)."""
+    rng = np.random.RandomState(4)
+    x = torch.tensor(rng.randn(4, 6, 7, 7).astype(np.float32), device=device)
+    out = []
+    for design in ({"op": "lrn"}, {"op": "k", "bound": (-0.5, 0.5)},
+                   *({"op": op, "kernel": 3, "strides": 2, "padding": pad}
+                     for op in ("max", "avg", "sum") for pad in ("SAME", "VALID"))):
+        op = ParametricOp(design, (6, 7, 7), compute_dtype=torch.float32)
+        params = {"kernel": torch.tensor(0.9, device=device)} if design["op"] == "k" else {}
+        out.append(op.apply(params, {}, x)[0].cpu().numpy())
+    design = [{"name": "in", "out": 8, "op": "c", "kernel": 3, "act": "relu"},
+              {"name": "a", "out": 4, "op": "c", "kernel": 3, "act": "relu"},
+              {"name": "b", "out": 4, "op": "c", "kernel": 1, "act": "lrelu"},
+              {"name": "cat", "out": 8, "op": "c", "kernel": 3, "act": "linear"},
+              {"name": "sum", "out": 3, "op": "c", "kernel": 3, "act": "tanh"}]
+    r = Routine(Net(design, net_name="r", compute_dtype=torch.float32))
+    r.add_input_layers([6, 7, 7], [0])
+    r.link([0], [1, 2], input_fun="split")
+    r.link([1, 2], [3], input_fun="concat")
+    r.link([3, 0], [4], input_fun="sum")
+    r.add_output_layers([4])
+    params, _ = r.init(torch.Generator().manual_seed(0))
+    params = tree_map(lambda t: t.to(device).requires_grad_(True), params)
+    y, _ = r.apply(params, {}, x)
+    grads = torch.autograd.grad((y ** 2).sum(), tree_leaves(params))
+    return out + [y.detach().cpu().numpy()] + [g.cpu().numpy() for g in grads]
+
+
+def check_catalogue_on_card(dev) -> None:
+    """Phase 12, card vs CPU, TF32 off, rtol 1e-3 / atol 1e-5: three
+    float32 steps of the narrow conditional models (every conditional op
+    with rep; the projection head with hinge); the catalogue model's
+    forward and one rep step (after the first 'rmb' step); the lrn, k and
+    pooling ops and a split/concat/sum Routine with its gradients."""
+    runs = tf32_off(lambda: {d: [labelled_metrics(d, COND_OPS_ARCH, "rep", NUM_CLASS),
+                                 labelled_metrics(d, COND_PROJECT_ARCH, "hinge", NUM_CLASS),
+                                 narrow_metrics(d, "rep", arch=CATALOGUE_ARCH, n_steps=1)]
+                             for d in ("cpu", dev)})
+    names = ("conditional ops", "projection head", "catalogue")
+    worst = {what: assert_metrics_close(got, want, f"card vs CPU, {what}")
+             for got, want, what in zip(runs[dev], runs["cpu"], names)}
+    arrays = tf32_off(lambda: {d: _forward(d, COND_OPS_ARCH, NUM_CLASS)
+                               + _forward(d, CATALOGUE_ARCH) + _small_checks(d)
+                               for d in ("cpu", dev)})
+    for i, (got, want) in enumerate(zip(arrays[dev], arrays["cpu"])):
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5, err_msg=f"array {i}")
+    log(f"[conditional] card vs CPU, f32, TF32 off, rtol 1e-3: three steps of the conditional "
+        f"model with dcd, cbn, tcck, c_bias, bcb, cck and dck (rep) and of the projection head "
+        f"(hinge), one of the catalogue model (res, res_v1, nl, nl_pool_dist; bil, ps, unpool, "
+        f"bic, avg, max; i, sc; asymmetric-SAME, dilated and VALID convs) agree on every step "
+        f"metric (largest relative difference by model: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f"); {len(arrays['cpu'])} forward, "
+        "op (lrn, k, max/avg/sum SAME and VALID) and split/concat/sum Routine outputs and "
+        "gradients agree")
+
+
+def run_conditional(dev, card: str) -> list:
+    """Phase 12a: ``cifar_architecture(conditional=True)`` at full width
+    (cbn generator, dck head, 10 classes), rep b64 bf16, host-fed labels
+    through graphed K=16 windows from the state of seed 0: the eager
+    warm-up, the capture, MEASURE_CALLS timed replays; the wrappers'
+    counters show 1 + 2 kernel-means launches per step of the eager window
+    and the capture; one profiled replay must count 1 + 2 per step; finite
+    metrics; the cbn and dck parameters moved. Returns the profiler's
+    counts."""
+    arch = cifar_architecture(conditional=True)
+    model, ts, multi, batches = main_path_setup(dev, "rep", arch=arch, num_class=NUM_CLASS)
+    n_params = sum(p.numel() for p in tree_leaves(ts.params))
+    watched = {f"{net}/{scope}/{op}/{leaf}": t.detach().clone()
+               for net in ("gen", "dis") for scope, ops in ts.params[net].items()
+               for op, leaves in ops.items() for leaf, t in leaves.items()
+               if leaf in ("scale", "offset", "c_kernel")}
+    assert len(watched) == 7, sorted(watched)   # 3 cbn x (scale, offset) + dck's c_kernel
+    reset_counters()
+    ts, m, sps = timed_windows(multi, ts, batches)
+    assert_counted("conditional cifar10", multi.graphs.eager + multi.graphs.captures)
+    prof = _profiled_window(multi, ts, batches, "conditional cifar10 replayed window")
+    bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
+    assert not bad and all(torch.isfinite(t.float()).all() for t in ts.tensors()), bad
+    now = {f"{net}/{scope}/{op}/{leaf}": t
+           for net in ("gen", "dis") for scope, ops in ts.params[net].items()
+           for op, leaves in ops.items() for leaf, t in leaves.items()}
+    still = [k for k, v in watched.items() if torch.equal(v, now[k])]
+    assert not still, f"conditional parameters that did not move: {still}"
+    images = model.generate(ts.params, ts.net_state, torch.Generator(dev).manual_seed(0),
+                            labels=torch.arange(NUM_CLASS, device=dev))
+    assert images.shape == (NUM_CLASS, 32, 32, 3) and torch.isfinite(images).all()
+    log(f"[conditional] cifar10 conditional (cbn G, dck head, {NUM_CLASS} classes, {n_params} "
+        f"parameters) rep b{BATCH} bf16, host labels: graphed {sps:.2f} steps/s "
+        f"({MEASURE_CALLS * SCAN_K} steps after {WARMUP_CALLS * SCAN_K} warm-up, unprofiled), "
+        f"loss_gen={float(m['loss_gen'][-1]):.5f} e_kxx={float(m['e_kxx'][-1]):.5f}; the 7 "
+        f"cbn/dck parameter tensors moved; a replay: device busy {prof['union']:.4f} ms/step, "
+        f"idle {100 * (1 - prof['union'] / prof['span']):.1f}% of the span, "
+        f"{prof['activities']:.0f} activities/step, kernel means "
+        f"{prof['kernel_means_fwd'] // SCAN_K}+{prof['kernel_means_bwd'] // SCAN_K} per step; "
+        f"card: {card}")
+    _log_profile(prof, 1e3 / sps, "conditional cifar10 graphed (a replay)")
+    return [prof["kernel_means_fwd"], prof["kernel_means_bwd"]]
+
+
+def labelled_dataset(dev) -> tuple:
+    """CIFAR-10's shape from seed 0: 50,000 x 32 x 32 x 3 uint8 images and
+    [N, 1] labels, 5,000 per class in a shuffled order; host and card."""
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 256, (AGENT_ROWS, 32, 32, 3), np.uint8)
+    y = rng.permutation(np.repeat(np.arange(NUM_CLASS), AGENT_ROWS // NUM_CLASS))
+    y = y[:, None].astype(np.int32)
+    return x, y, torch.tensor(x, device=dev), torch.tensor(y.astype(np.int64), device=dev)
+
+
+def _same_class_fn(template, sampling: str, same_class: bool, table, counts,
+                   capture: bool = True) -> tuple:
+    model = SNGan(cifar_architecture(conditional=True), num_class=NUM_CLASS, loss_type="rep")
+    opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+    fn = build_device_data_step(model, opt_d, opt_g, SCAN_K, BATCH, same_class=same_class,
+                                class_table=table if same_class else None,
+                                class_counts=counts if same_class else None,
+                                sampling=sampling, capture=capture)
+    return model, fn, copy_state(template)
+
+
+def _scheduled(fn, data_x, data_y, rng, start: int = 0):
+    """A caller of ``fn`` that hands each window its rows of the class
+    schedule (seed 0), from step ``start`` on."""
+    sched = class_schedule(NUM_CLASS, 4096, 0)
+    at = [start]
+
+    def drive(ts, _):
+        rows = sched[at[0]:at[0] + SCAN_K]
+        at[0] += SCAN_K
+        return fn(ts, data_x, data_y, rng, schedule=rows)
+    return drive
+
+
+def check_same_class_data(dev, card: str) -> None:
+    """Phase 12b: same-class sampling over a CIFAR-shaped labelled dataset
+    on the card (``labelled_dataset``), the conditional model at full
+    width, rep b64 bf16:
+    - SAMPLER_DRAWS batches of each sampler, read on the card: every batch
+      is one class, its rows' labels are that class, the scheduled one
+      takes the schedule's classes, the uniform one each class about a
+      tenth of the time;
+    - graphed steps/s of labelled uniform (not same-class), same-class
+      uniform and same-class shuffled-epochs windows;
+    - under deterministic algorithms, graphed and eager windows end
+      bitwise equal for both same-class samplings, and
+      ``Agent.train_device_data(sample_same_class=True)`` under
+      shuffled epochs runs 800 straight steps equal to 400 + restore by a
+      new Agent + 400 bitwise."""
+    x, y, data_x, data_y = labelled_dataset(dev)
+    table, counts = same_class_tables(y, NUM_CLASS)
+    template = init_train_state(SNGan(cifar_architecture(conditional=True),
+                                      num_class=NUM_CLASS), 0, *multi_opt_config([5e-4, 2e-4]))
+    sched = class_schedule(NUM_CLASS, SAMPLER_DRAWS, 0)
+    for sampling in ("uniform", "shuffled_epochs"):
+        _, fn, _ = _same_class_fn(template, sampling, True, table, counts)
+        sample = fn.sampler(data_x, data_y)
+        rng = torch.Generator(dev).manual_seed(2)
+        ys = torch.stack([sample(rng, torch.tensor(t, device=dev),
+                                 torch.tensor(sched[t], device=dev))["y"]
+                          for t in range(SAMPLER_DRAWS)])            # [draws, B, 1]
+        assert bool((ys == ys[:, :1]).all()), f"{sampling}: a batch mixes classes"
+        first = ys[:, 0, 0].cpu().numpy()
+        if sampling == "shuffled_epochs":
+            assert np.array_equal(first, sched[:, 0]), "the batches do not follow the schedule"
+        else:
+            freq = np.bincount(first, minlength=NUM_CLASS) / SAMPLER_DRAWS
+            assert np.all(np.abs(freq - 0.1) < 0.07), freq
+    log(f"[same-class] {SAMPLER_DRAWS} batches of each sampler read on the card: every batch "
+        f"one class ({BATCH} rows whose labels, gathered with them, are that class); the "
+        "shuffled-epochs batches follow the class schedule")
+
+    rates = {}
+    for name, sampling, same in (("labelled uniform", "uniform", False),
+                                 ("same-class uniform", "uniform", True),
+                                 ("same-class shuffled epochs", "shuffled_epochs", True)):
+        _, fn, ts = _same_class_fn(template, sampling, same, table, counts)
+        rng = torch.Generator(dev).manual_seed(1)
+        drive = (_scheduled(fn, data_x, data_y, rng) if sampling == "shuffled_epochs"
+                 else lambda ts, _, fn=fn, rng=rng: fn(ts, data_x, data_y, rng))
+        ts, m, rates[name] = timed_windows(drive, ts, None)
+        assert all(torch.isfinite(v).all() for v in m.values()), name
+    log(f"[same-class] graphed device-data windows of the conditional model, steady state "
+        f"({MEASURE_CALLS * SCAN_K} steps after {WARMUP_CALLS * SCAN_K}): "
+        + ", ".join(f"{k} {v:.2f} steps/s" for k, v in rates.items()) + f"; card: {card}")
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ends = {}
+        for sampling in ("uniform", "shuffled_epochs"):
+            for capture in (True, False):
+                _, fn, ts = _same_class_fn(template, sampling, True, table, counts, capture)
+                rng = torch.Generator(dev).manual_seed(1)
+                drive = (_scheduled(fn, data_x, data_y, rng) if sampling == "shuffled_epochs"
+                         else lambda ts, _, fn=fn, rng=rng: fn(ts, data_x, data_y, rng))
+                for _ in range(DATA_WINDOWS):
+                    ts, m = drive(ts, None)
+                if capture:
+                    assert fn.graphs.replays == DATA_WINDOWS - 1, fn.graphs.replays
+                ends[(sampling, capture)] = _end_state(ts, m) + [rng.get_state()]
+        with tempfile.TemporaryDirectory() as out:
+            data = {"x": x, "y": y}
+            straight = run_same_class_agent(template, out, "straight", data, 800, do_save=False)
+            run_same_class_agent(template, out, "halves", data, 400)
+            resumed = run_same_class_agent(template, out, "halves", data, 400, load_ckpt=True,
+                                           do_save=False)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    for sampling in ("uniform", "shuffled_epochs"):
+        differ = _differ(ends[(sampling, True)], ends[(sampling, False)])
+        assert differ == 0, f"same-class {sampling}: {differ} tensors differ, graphed vs eager"
+    differ = _differ(straight.tensors() + [straight.rng.get_state()],
+                     resumed.tensors() + [resumed.rng.get_state()])
+    assert int(resumed.step) == 800 and differ == 0, (
+        f"same-class Agent: {differ} tensors differ, 800 straight vs 400 + restore + 400")
+    log(f"[same-class] under deterministic algorithms graphed and eager same-class windows end "
+        f"bitwise equal, uniform and shuffled epochs ({DATA_WINDOWS * SCAN_K} steps each, "
+        f"{len(ends[('uniform', False)])} tensors); Agent.train_device_data("
+        f"sample_same_class=True, shuffled epochs): 800 straight steps equal 400 + restore by "
+        f"a new Agent + 400 bitwise")
+
+
+def run_same_class_agent(template, out: str, name: str, data: dict, max_step: int,
+                         load_ckpt: bool = False, do_save: bool = True):
+    """``Agent.train_device_data`` of the conditional model with
+    ``sample_same_class=True`` under shuffled epochs, K=16, from a copy of
+    ``template`` (restored first when ``load_ckpt``)."""
+    model = SNGan(cifar_architecture(conditional=True), num_class=NUM_CLASS, loss_type="rep")
+    model.sample_same_class = True
+    opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+    agent = Agent(name, "t", output_dir=out, load_ckpt=load_ckpt, do_save=do_save,
+                  query_step=400, print_loss=False, use_tensorboard=False)
+    return agent.train_device_data(model, opt_d, opt_g, copy_state(template), data,
+                                   max_step=max_step, step_per_epoch=AGENT_ROWS // BATCH,
+                                   batch_size=BATCH, steps_per_call=SCAN_K,
+                                   sample_same_class=True, sampling="shuffled_epochs")
+
+
+def check_conditional_cli() -> None:
+    """Phase 12d: ``python -m mmdgan_torch.experiments.cifar --num-class 10
+    --sample-same-class`` in three subprocesses side by side: on synthetic
+    labelled data, host-fed over a tfrecord of 4,096 seeded labelled images
+    (the pipeline's same-class batching), and over the same tfrecord
+    resident on the card with ``--device-dataset --sampling
+    shuffled_epochs`` (the class schedule)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(3)
+        np_to_tfrecords(rng.randint(0, 256, (4096, 3, 32, 32), np.uint8),
+                        rng.randint(0, NUM_CLASS, 4096), os.path.join(tmp, "cifar"))
+        common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1",
+                  "--num-class", str(NUM_CLASS), "--sample-same-class", "--query-step", "32",
+                  "--steps-per-chunk", "64"]
+        run_clis([("cifar", common + ["--synthetic-data"], "conditional, synthetic, 64 steps"),
+                  ("cifar", common + ["--data-dir", tmp],
+                   "conditional, tfrecord host-fed, same-class batches, 64 steps"),
+                  ("cifar", common + ["--data-dir", tmp, "--device-dataset", "--sampling",
+                                      "shuffled_epochs"],
+                   "conditional, tfrecord on the card, class schedule, 64 steps")], tmp)
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace, chosen before
     # its first call (phase 6)
@@ -1544,10 +1959,14 @@ def main() -> int:
     phase("11 metrics", lambda: check_metrics_on_card(dev))
     phase("11 optimizer windows", lambda: check_optimizer_windows(dev))
     phase("11 optimizer steps/s", lambda: optimizer_steps_per_sec(dev, card))
+    cond_launches = phase("12 conditional", lambda: run_conditional(dev, card))
+    phase("12 same-class data", lambda: check_same_class_data(dev, card))
+    phase("12 card vs CPU", lambda: check_catalogue_on_card(dev))
+    phase("12 cli", check_conditional_cli)
     for i, kernel in enumerate(kernels):
         kernel["launches"] = (sum(launches[i] for launches, _ in runs.values()) + loss_launches[i]
                               + sum(f[i] for f in family_launches) + hd_launches[i]
-                              + eval_launches[i])
+                              + eval_launches[i] + cond_launches[i])
 
     log(f"[timing] seconds by phase: {json.dumps(seconds)}")
     log(json.dumps({"kernels": kernels}))

@@ -1,12 +1,12 @@
 """The architecture dicts of the port (own copy of
-``experiments/architectures.py:13-208``, unconditional variants): CIFAR-10,
-STL-10, CelebA, LSUN and the extrapolated hd family.
+``experiments/architectures.py:13-208``): CIFAR-10, STL-10, CelebA, LSUN
+and the extrapolated hd family; CIFAR-10 and hd also class-conditional.
 
 The dicts are the reference's format: reshape and input specs are
 channels-first, which is also the port's internal layout, so the layers
 use them as they stand. Every SAME padding of these families is
 symmetric (even sizes under 4x4 stride-2 convs and transposed convs,
-3x3 stride-1 convs), which is all the port's ``same_padding`` takes.
+3x3 stride-1 convs), so each conv is one cuDNN call with torch's padding.
 """
 
 from __future__ import annotations
@@ -16,9 +16,29 @@ import math
 import numpy as np
 
 
-def cifar_architecture(act_k: float = float(np.power(64.0, 0.125)), w_nm: str = "s"):
+def make_conditional(arch: dict) -> dict:
+    """The class-conditional variant the reference builds for labelled
+    data (my_sngan.py num_class >= 2): the generator's batch norms become
+    conditional (cbn, layer_func.py:914-963) and the score head a
+    conditionally scaled dense ('dck', dense * (1 + per-class scale),
+    layer_func.py:679-690)."""
+    for layer in arch["generator"]:
+        if layer.get("act_nm") == "bn":
+            layer["act_nm"] = "cbn"
+    arch["discriminator"][-1]["op"] = "dck"
+    return arch
+
+
+def cifar_architecture(act_k: float = float(np.power(64.0, 0.125)), w_nm: str = "s",
+                       conditional: bool = False):
     """my_test_cifar.py:12-38 — 32x32, code 128, DCGAN G (dense ->
-    3x tc k4 s2 bn relu -> conv tanh), 8-layer SN-lrelu D, d=16 scores."""
+    3x tc k4 s2 bn relu -> conv tanh), 8-layer SN-lrelu D, d=16 scores.
+    ``conditional=True``: cbn generator, dck score head (``make_conditional``)."""
+    arch = _cifar_arch(act_k, w_nm)
+    return make_conditional(arch) if conditional else arch
+
+
+def _cifar_arch(act_k: float, w_nm: str):
     return {
         "input": [(3, 32, 32)],
         "code": [(128, "linear")],
@@ -141,12 +161,7 @@ def hd_architecture(size: int = 128, act_k: float = float(np.power(64.0, 0.1)),
     floored at 32); D: the mirrored conv/downsample stack to 4x4 -> dense
     score. At these sizes activations dominate memory: pair with
     ``build_grad_accum_step`` (``--micro-batches``).
-
-    ``conditional=True`` (cbn generator, dck score head) raises: the
-    conditional ops are not ported yet (ROADMAP A13)."""
-    if conditional:
-        raise NotImplementedError("the conditional hd architecture needs the conditional "
-                                  "ops, which are not ported yet (ROADMAP A13)")
+    ``conditional=True``: cbn generator, dck score head."""
     if size < 8 or size & (size - 1):
         raise ValueError(f"size must be a power of two >= 8, got {size}")
     ups = int(math.log2(size // 4))
@@ -172,9 +187,10 @@ def hd_architecture(size: int = 128, act_k: float = float(np.power(64.0, 0.1)),
                 "w_nm": w_nm, "kernel": 4, "strides": 2, "out_reshape": [top * 4 * 4]})
     dis.append({"name": f"l{ups + 2}_s", "out": score_size, "op": "d", "act_k": act_k,
                 "w_nm": w_nm})
-    return {
+    arch = {
         "input": [(3, size, size)],
         "code": [(128, "linear")],
         "generator": gen,
         "discriminator": dis,
     }
+    return make_conditional(arch) if conditional else arch

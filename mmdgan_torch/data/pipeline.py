@@ -6,10 +6,11 @@ copy of ``mmdgan_tpu/data/pipeline.py:44-333`` (``input_func.py:721-965``):
   (-> same-class batching via a per-class queue, the group_by_window
    equivalent, input_func.py:905-916)
 
-A background thread decodes and batches ahead (``prefetch.background``). Not ported: the
-C++ record reader (``native.py``, ROADMAP A10), per-host sharding (the
-mesh, ROADMAP A15) and host-side resizing (``models/scaling.py``,
-ROADMAP A13).
+A background thread decodes and batches ahead (``prefetch.background``).
+``shape2image(..., resize=(h, w))`` resizes on the host with the
+align-corners bilinear matrices of ``models/scaling.py`` (float batches
+only, as in JAX). Not ported: the C++ record reader (``native.py``,
+ROADMAP A10) and per-host sharding (the mesh, ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 
 from mmdgan_torch.data.prefetch import background
 from mmdgan_torch.data.tfrecord import TFRecordReader, parse_example
+from mmdgan_torch.models.scaling import resize_matrix
 
 
 def _resolve_filenames(filename, file_folder, file_repeat, shuffle_file):
@@ -83,9 +85,14 @@ class ReadTFRecords:
 
         :param transpose: swap H and W (the reference's image_transpose
             for datasets like MNIST, my_sngan.py:72-78, :358-359).
+        :param resize: (h, w) to resize each image to on the host
+            (input_func.py:846-850, tf.image.resize_images with
+            align_corners=True); not with ``device_decode``.
         """
-        if resize is not None:
-            raise NotImplementedError("host-side resizing is not ported yet (ROADMAP A13)")
+        if resize is not None and self.device_decode:
+            raise ValueError("device_decode does not support host-side resize; "
+                             "use device_decode=False for resized pipelines")
+        self._resize = None if resize is None else tuple(resize)
         self._image_shape = (channels, height, width)
         self._transpose_hw = transpose
         self.batch_shape = [self.batch_size, height, width, channels]
@@ -122,7 +129,14 @@ class ReadTFRecords:
         x = x.reshape(self._image_shape).transpose(1, 2, 0)
         if self._transpose_hw:
             x = x.transpose(1, 0, 2)  # swap H and W (image_transpose)
-        return x if self.device_decode else x.astype(np.float32) / 127.5 - 1.0
+        if self.device_decode:
+            return x
+        x = x.astype(np.float32) / 127.5 - 1.0
+        if self._resize is not None:
+            wh = resize_matrix(x.shape[0], self._resize[0], "linear")
+            ww = resize_matrix(x.shape[1], self._resize[1], "linear")
+            x = np.einsum("pw,owc->opc", ww, np.einsum("oh,hwc->owc", wh, x))
+        return x
 
     # ------------------------------------------------------------------
     def _sample_stream(self) -> Iterator[Dict[str, np.ndarray]]:

@@ -14,12 +14,15 @@ bfloat16. ``--micro-batches M`` runs the accumulated step
 the device-data windows; ``--imbalanced-update`` runs inside
 ``--steps-per-call`` windows, its flags computed on the device.
 ``--inception-pb`` gives the frozen classifier graph; without it the
-scores come from random features, comparable only within the port. A flag
-whose module is not ported yet raises and names its ROADMAP item:
-``--use-pallas`` (the TPU kernel; the port always runs its own CUDA
-kernel-means kernel, B1), ``--compilation-cache`` (A16) and
-``--num-class``/``--sample-same-class`` (A13/A12). ``--loss`` takes every
-name of the loss dispatcher.
+scores come from random features, comparable only within the port.
+``--num-class C`` (C >= 2) reads labels with the images (synthetic labels
+with ``--synthetic-data``) and trains the class-conditional model the
+dataset's script builds; ``--sample-same-class`` takes each batch from
+one class and generates that class. A flag whose module is not ported
+yet raises and names its ROADMAP item: ``--use-pallas`` (the TPU kernel;
+the port always runs its own CUDA kernel-means kernel, B1) and
+``--compilation-cache`` (A16). ``--loss`` takes every name of the loss
+dispatcher.
 """
 
 from __future__ import annotations
@@ -115,9 +118,6 @@ def refuse_unported(args) -> None:
         (args.use_pallas, "--use-pallas selects the TPU's Pallas kernel; the port runs "
                           "its CUDA kernel-means kernel (ROADMAP B1)"),
         (bool(args.compilation_cache), "--compilation-cache is not ported yet (ROADMAP A16)"),
-        (args.num_class >= 2, "conditional models (--num-class) are not ported yet "
-                              "(ROADMAP A13)"),
-        (args.sample_same_class, "--sample-same-class is not ported yet (ROADMAP A12)"),
     ]
     for refused, why in unported:
         if refused:
@@ -177,14 +177,17 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
                   imbalanced_update=imbalanced, print_loss=True,
                   output_dir=cfg.output_dir, param_hist_step=args.param_hist_step)
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    model = SNGan(architecture, loss_type=loss_type, rep_weights=rep_weights,
-                  compute_dtype=compute_dtype, summary_histograms=args.summary_histograms,
-                  device=device)
+    model = SNGan(architecture, num_class=args.num_class, loss_type=loss_type,
+                  rep_weights=rep_weights, compute_dtype=compute_dtype,
+                  summary_histograms=args.summary_histograms, device=device)
+    model.sample_same_class = args.sample_same_class
+    num_labels = 0 if args.num_class < 2 else 1
 
     step_per_epoch = int(np.floor(num_instance / args.batch_size))
-    # file_repeat gcd trick (my_sngan.py:381-397)
+    # file_repeat gcd trick (my_sngan.py:381-397), per class for labelled data
     if args.steps_per_chunk >= step_per_epoch or isinstance(filename, str):
-        file_repeat = int(args.batch_size / math.gcd(num_instance, args.batch_size))
+        per_repeat = num_instance if args.num_class < 2 else int(num_instance / args.num_class)
+        file_repeat = int(args.batch_size / math.gcd(per_repeat, args.batch_size))
         shuffle_file = False
     else:
         file_repeat = 1
@@ -192,10 +195,12 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
 
     def make_data_iter():
         if args.synthetic_data:
-            return synthetic_image_batches(args.batch_size, h, w, c, seed=args.seed)
-        return ReadTFRecords(filename, batch_size=args.batch_size, file_repeat=file_repeat,
-                             shuffle_file=shuffle_file, device_decode=not args.host_decode,
-                             ).shape2image(c, h, w).next_batch()
+            return synthetic_image_batches(args.batch_size, h, w, c, num_class=args.num_class,
+                                           seed=args.seed)
+        return ReadTFRecords(filename, num_labels=num_labels, batch_size=args.batch_size,
+                             file_repeat=file_repeat, shuffle_file=shuffle_file,
+                             device_decode=not args.host_decode,
+                             ).shape2image(c, h, w).next_batch(args.sample_same_class)
 
     opt_d, opt_g = multi_opt_config(lr_list, end_lr=args.end_lr, optimizer=args.optimizer,
                                     target_step=args.chunks * args.steps_per_chunk,
@@ -209,12 +214,13 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
                    if args.micro_batches > 1 else
                    build_train_step(model, opt_d, opt_g, device=device))
     print(f"Device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}); "
-          f"Num instance: {num_instance}; Batch: {args.batch_size}; File_repeat: {file_repeat}",
+          f"Num instance: {num_instance}; Num class: {args.num_class}; Batch: {args.batch_size}; "
+          f"File_repeat: {file_repeat}",
           flush=True)
 
     device_data = None
     if use_device_data:
-        device_data = ReadTFRecords(filename, batch_size=args.batch_size,
+        device_data = ReadTFRecords(filename, num_labels=num_labels, batch_size=args.batch_size,
                                     device_decode=True).shape2image(c, h, w).load_all()
         print(f"Device-resident dataset: x{device_data['x'].shape} {device_data['x'].dtype} "
               f"({device_data['x'].nbytes / 2**20:.1f} MiB to the device)", flush=True)
@@ -237,7 +243,8 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
                 model, opt_d, opt_g, ts, device_data, max_step=max_step,
                 step_per_epoch=step_per_epoch, batch_size=args.batch_size,
                 steps_per_call=max(args.steps_per_call, 16), summary_image_fn=images,
-                seed=args.seed + chunk, sampling=args.sampling,
+                seed=args.seed + chunk, sample_same_class=args.sample_same_class,
+                sampling=args.sampling,
                 # the epoch permutations must not change at chunk boundaries
                 sampling_seed=args.seed, micro_batches=args.micro_batches)
         else:
@@ -251,7 +258,8 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
         train_steps += gstep - step_before
         # per-layer spectral norms (reference kernel_norm summaries)
         norms = model.Dis.kernel_norms(ts.params["dis"], ts.net_state["dis"])
-        agent.writer.scalars(gstep, {f"sigma/{k}": v for k, v in norms.items()})
+        agent.writer.scalars(gstep, {f"sigma/{k}": v for k, v in norms.items()
+                                     if isinstance(v, float)})
         if not args.skip_sampling:
             model.eval_sampling(ts.params, ts.net_state, agent.filename, sub_folder,
                                 mesh_num=(20, 20), mesh_mode=0, code_x=code_x, do_sprite=True,

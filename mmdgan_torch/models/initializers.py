@@ -1,9 +1,11 @@
-"""Weight and bias initializers, default mode (``mmdgan_tpu/models/initializers.py:20-88``).
+"""Weight and bias initializers (``mmdgan_tpu/models/initializers.py:20-88``).
 
-Variance scaling per activation: relu 2.0 fan_in normal, lrelu 2/1.01
-fan_in normal, sigmoid 16 fan_avg uniform, else xavier fan_avg uniform.
-Normals are truncated at +-2 standard deviations. Draws come from an
-explicit ``torch.Generator``; the same seed does not give JAX's numbers.
+``mode='default'``: variance scaling per activation, relu 2.0 fan_in
+normal, lrelu 2/1.01 fan_in normal, sigmoid 16 fan_avg uniform, else
+xavier fan_avg uniform; ``'sn_paper'``: a normal of std 0.02;
+``'pg_paper'``: a unit normal (a runtime multiplier rescales). Normals are
+truncated at +-2 standard deviations. Draws come from an explicit
+``torch.Generator``; the same seed does not give JAX's numbers.
 """
 
 from __future__ import annotations
@@ -36,13 +38,21 @@ def truncated_normal(generator: torch.Generator, shape: Sequence[int]) -> torch.
     return torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
 
 
-def weight_initializer(act_fun: str, init_w_scale: float = 1.0):
-    """Return ``init(generator, shape) -> Tensor`` for a port kernel."""
+def weight_initializer(act_fun: str, init_w_scale: float = 1.0, mode: str = "default"):
+    """Return ``init(generator, shape, fan=None) -> Tensor`` for a port
+    kernel; ``fan`` overrides ``fans(shape)`` where the port's layout is not
+    the one the fans follow (the separable conv's depthwise kernel)."""
+    if mode not in ("default", "sn_paper", "pg_paper"):
+        raise NotImplementedError(f"initializer {mode} not implemented")
 
-    def init(generator: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    def init(generator: torch.Generator, shape: Sequence[int], fan=None) -> torch.Tensor:
+        if mode == "sn_paper":
+            return 0.02 * truncated_normal(generator, shape)
+        if mode == "pg_paper":
+            return truncated_normal(generator, shape)
         if init_w_scale == 0.0:
             return torch.zeros(tuple(shape), dtype=torch.float32)
-        fan_in, fan_out = fans(shape)
+        fan_in, fan_out = fans(shape) if fan is None else fan
         if act_fun == "relu":
             scale, fan, dist = 2.0 * init_w_scale, fan_in, "normal"
         elif act_fun == "lrelu":  # assume alpha = 0.1

@@ -6,6 +6,14 @@ data batches arrive NHWC (``{"x": [B, H, W, C]}``); ``to_nchw`` is the one
 place the layout changes. ``gen_stage`` and ``dis_stage`` are the two
 halves of the train step and work on NCHW tensors.
 
+With ``num_class`` >= 2 the model is class-conditional: code batches
+carry labels ``y`` ([N, 1] int64, drawn uniformly unless given), the
+generator and the discriminator take them (``label=``), D scores
+concat(real, fake) against concat(real labels, code labels), and the
+penalties score their interpolates against the real batch's labels
+(``mmdgan_tpu/models/sngan.py:262-330,412``). ``sample_same_class`` makes
+the code labels those of the real batch (``:375-378``).
+
 The penalties (WGAN-GP, the MMD witness penalty, the scaled-MMD Jacobian
 scale) score their inputs with ``train=False`` and take their gradient
 with ``create_graph=True``: the step differentiates through it again
@@ -78,6 +86,7 @@ class SNGan:
     def __init__(
         self,
         architecture: dict,
+        num_class: int = 0,
         loss_type: str = "rep",
         rep_weights: Sequence[float] = (0.0, -1.0),
         penalty_weight: float = 0.1,
@@ -87,6 +96,8 @@ class SNGan:
         sigma: Optional[Sequence[float]] = None,
         summary_histograms: bool = False,
         do_summary: bool = True,
+        init_mode: str = "default",
+        sn_mode: str = "pico",
         device: DeviceLike = None,
     ):
         """:param architecture: dict with 'input' [(C, H, W)], 'code'
@@ -97,11 +108,17 @@ class SNGan:
             ``wasserstein``)
         :param sigma: the Gaussian mixture's sigmas (``GANLoss.sigma``)
         :param summary_histograms: ``hist/*`` counts in the step metrics
+        :param num_class: number of data classes (0/1 = unconditional)
+        :param init_mode: 'default' | 'sn_paper' | 'pg_paper' kernel init
+        :param sn_mode: 'pico' (power iteration on the layer operator) or
+            'pim' / 'sn_paper' (on the conv kernel as a matrix)
         :param device: ``cuda`` by default; raises without a GPU unless
             ``"cpu"`` is passed."""
         self.device = resolve_device(device)
         self.architecture = architecture
         self.loss_type = loss_type
+        self.num_class = int(num_class)
+        self.sample_same_class = False
         self.do_summary = do_summary
         self.channels, self.height, self.width = architecture["input"][0]
         self.code_size = architecture["code"][0][0]
@@ -113,14 +130,23 @@ class SNGan:
                                use_fused_kernel=use_fused_kernel,
                                summary_histograms=summary_histograms,
                                **({"sigma": tuple(sigma)} if sigma is not None else {}))
-        self.Gen = Routine(Net(architecture["generator"], (self.code_size,),
-                               net_name="gen", compute_dtype=compute_dtype))
-        self.Dis = Routine(Net(architecture["discriminator"],
-                               (self.channels, self.height, self.width),
-                               net_name="dis", compute_dtype=compute_dtype))
+        self.Gen = self._routine(architecture["generator"], "gen", (self.code_size,),
+                                 init_mode, sn_mode)
+        self.Dis = self._routine(architecture["discriminator"], "dis",
+                                 (self.channels, self.height, self.width), init_mode, sn_mode)
         expect = (self.channels, self.height, self.width)
         assert tuple(self.Gen.output_shape) == expect, (
             f"generator output {self.Gen.output_shape} does not match data shape {expect}")
+
+    def _routine(self, design, name, input_shape, init_mode, sn_mode) -> Routine:
+        """A chain of the net's layers (my_sngan.py:85-108)."""
+        net = Net(design, net_name=name, num_class=self.num_class, init_mode=init_mode,
+                  sn_mode=sn_mode, compute_dtype=self.compute_dtype)
+        routine = Routine(net)
+        routine.add_input_layers(input_shape, [0])
+        routine.seq_links(list(range(net.num_layers)))
+        routine.add_output_layers([net.num_layers - 1])
+        return routine
 
     def init(self, seed: int) -> Tuple[Dict, Dict, LossState]:
         """(params, net_state, loss_state) on ``self.device``; params have
@@ -134,41 +160,80 @@ class SNGan:
         return (to_dev({"gen": pg, "dis": pd}), to_dev({"gen": sg, "dis": sd}),
                 LossState.init(self.device))
 
+    def as_labels(self, y, batch_size: int) -> Optional[torch.Tensor]:
+        """Labels as [N, 1] int64 on the device: an int fills the batch."""
+        if y is None:
+            return None
+        if isinstance(y, int):
+            return torch.full((batch_size, 1), y, dtype=torch.int64, device=self.device)
+        y = torch.as_tensor(y, device=self.device).long()
+        return y[:, None] if y.dim() == 1 else y
+
     def sample_codes(self, generator: Optional[torch.Generator], batch_size: int,
-                     code_x=None) -> Dict[str, Optional[torch.Tensor]]:
-        """z ~ N(0, 1) from ``generator``, or ``code_x`` as given."""
+                     code_x=None, code_y=None) -> Dict[str, Optional[torch.Tensor]]:
+        """z ~ N(0, 1) and, for a conditional model, labels ~ U{0..C-1}
+        (my_sngan.py:111-149), drawn from ``generator`` in that order, or
+        as given: ``code_y`` an int, [N] or [N, 1]. Labels come out [N, 1]
+        int64 on the model's device."""
         if code_x is None:
             code_x = torch.randn(batch_size, self.code_size, generator=generator,
                                  device=self.device)
         else:
             code_x = torch.as_tensor(code_x, dtype=torch.float32, device=self.device)
             assert code_x.shape[0] == batch_size
-        return {"x": code_x, "y": None}
+        if self.num_class < 2:
+            return {"x": code_x, "y": None}
+        if code_y is None:
+            dev = self.device if generator is None else generator.device
+            code_y = torch.randint(0, self.num_class, (batch_size, 1), generator=generator,
+                                   device=dev)
+        return {"x": code_x, "y": self.as_labels(code_y, batch_size)}
 
     def generate(self, params: Dict, state: Dict, generator: Optional[torch.Generator] = None,
                  batch_size: Optional[int] = None, code_batch: Optional[Dict] = None,
-                 clip: bool = True) -> torch.Tensor:
-        """Eval-mode generation; returns NHWC float32 images."""
+                 clip: bool = True, labels=None) -> torch.Tensor:
+        """Eval-mode generation; returns NHWC float32 images. ``labels``
+        (an int, [N] or [N, 1]) are the classes of a conditional model;
+        [N] labels set the batch size when it is not given. Ignored when
+        ``code_batch`` is given (its 'y' holds the labels)."""
         if code_batch is None:
-            code_batch = self.sample_codes(generator, batch_size)
+            if labels is not None and batch_size is None and not isinstance(labels, int):
+                batch_size = len(labels)
+            code_batch = self.sample_codes(generator, batch_size, code_y=labels)
+        label = self.as_labels(code_batch.get("y"), code_batch["x"].shape[0])
         with torch.no_grad():
-            x, _ = self.Gen.apply(params["gen"], state["gen"], code_batch["x"], train=False)
+            x, _ = self.Gen.apply(params["gen"], state["gen"],
+                                  torch.as_tensor(code_batch["x"], device=self.device),
+                                  train=False, label=label)
         x = x.permute(0, 2, 3, 1)
         return torch.clamp(x, -1.0, 1.0) if clip else x
 
-    def discriminate(self, params: Dict, state: Dict, batch, train: bool = False) -> torch.Tensor:
-        """Scores [N, d] of a batch: a {'x': ...} dict or an NHWC image
-        array, uint8 or float."""
-        x = batch["x"] if isinstance(batch, dict) else batch
+    def discriminate(self, params: Dict, state: Dict, batch, train: bool = False,
+                     labels=None) -> torch.Tensor:
+        """Scores [N, d] of a batch: a {'x': ..., 'y': ...} dict, or an NHWC
+        image array (uint8 or float) with its class ``labels``."""
+        if isinstance(batch, dict):
+            x, labels = batch["x"], batch.get("y")
+        else:
+            x = batch
         x = to_nchw(decode_image_batch({"x": torch.as_tensor(x, device=self.device)})["x"])
-        out, _ = self.Dis.apply(params["dis"], state["dis"], x, train=train)
+        out, _ = self.Dis.apply(params["dis"], state["dis"], x, train=train,
+                                label=self.as_labels(labels, x.shape[0]))
         return out
+
+    @staticmethod
+    def concat_two_batches(batch1: Dict, batch2: Dict) -> Dict:
+        """my_sngan.py:243-256: x stacked, y stacked when both have it."""
+        y1, y2 = batch1.get("y"), batch2.get("y")
+        return {"x": torch.cat([batch1["x"], batch2["x"]], dim=0),
+                "y": None if y1 is None or y2 is None else torch.cat([y1, y2], dim=0)}
 
     # ------------------------------------------------------------------
     # gradient penalties (my_sngan.py:152-240), on NCHW images
     # ------------------------------------------------------------------
-    def _dis_fwd(self, params_d: Dict, state: Dict, x: torch.Tensor) -> torch.Tensor:
-        out, _ = self.Dis.apply(params_d, state["dis"], x, train=False)
+    def _dis_fwd(self, params_d: Dict, state: Dict, x: torch.Tensor,
+                 labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out, _ = self.Dis.apply(params_d, state["dis"], x, train=False, label=labels)
         return out
 
     def _interpolates(self, x, x_gen, generator, uni):
@@ -178,21 +243,23 @@ class SNGan:
 
     def gradient_penalty(self, params_d: Dict, state: Dict, x: torch.Tensor,
                          x_gen: torch.Tensor, generator: Optional[torch.Generator] = None,
-                         uni: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         uni: Optional[torch.Tensor] = None,
+                         labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """WGAN-GP: E (||d D(x_hat) / d x_hat|| - 1)^2 over interpolates
         with weights ``uni`` [N, 1, 1, 1] (drawn from ``generator`` when
-        not given)."""
+        not given), scored against ``labels`` (the real batch's)."""
         x_hat = self._interpolates(x, x_gen, generator, uni)
-        return _norm_penalty(_input_grad(self._dis_fwd(params_d, state, x_hat), x_hat))
+        return _norm_penalty(_input_grad(self._dis_fwd(params_d, state, x_hat, labels), x_hat))
 
     def mmd_gradient_penalty(self, params_d: Dict, state: Dict, x: torch.Tensor,
                              x_gen: torch.Tensor, s_x: torch.Tensor, s_gen: torch.Tensor,
                              mode: str = "rep_gp", generator: Optional[torch.Generator] = None,
-                             uni: Optional[torch.Tensor] = None) -> torch.Tensor:
+                             uni: Optional[torch.Tensor] = None,
+                             labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The MMD witness gradient penalty at interpolates, the witness
         taken against the step's scores ``s_x`` and ``s_gen``."""
         x_hat = self._interpolates(x, x_gen, generator, uni)
-        s_hat = self._dis_fwd(params_d, state, x_hat)
+        s_hat = self._dis_fwd(params_d, state, x_hat, labels)
         dist_zx = get_squared_dist(s_hat, s_x, mode="xy")
         dist_zy = get_squared_dist(s_hat, s_gen, mode="xy")
         if mode == "fixed_g_gp":
@@ -206,45 +273,55 @@ class SNGan:
             raise NotImplementedError(f"gradient penalty: {mode} not implemented")
         return _norm_penalty(_input_grad(wit, x_hat))
 
-    def mmd_gradient_scale(self, params_d: Dict, state: Dict, x: torch.Tensor) -> torch.Tensor:
+    def mmd_gradient_scale(self, params_d: Dict, state: Dict, x: torch.Tensor,
+                           labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The scaled-MMD discriminator scale 1 / (w E||J||_F^2 + 1)."""
         jaco = jacobian_squared_frobenius_norm(
-            lambda xx: self._dis_fwd(params_d, state, xx), x)
+            lambda xx: self._dis_fwd(params_d, state, xx, labels), x)
         return 1.0 / (self.penalty_weight * torch.mean(jaco) + 1.0)
 
     def gen_stage(self, params_gen: Dict, state: Dict, batch_size: int,
                   generator: Optional[torch.Generator] = None,
-                  code_batch: Optional[Dict] = None, train: bool = True):
+                  code_batch: Optional[Dict] = None, train: bool = True,
+                  data_y: Optional[torch.Tensor] = None):
         """Generator half of the train step: returns (gen_x NCHW,
-        gen_state, code_batch). ``code_batch`` overrides the z sampling."""
-        code_batch = self.sample_codes(
-            generator, batch_size, None if code_batch is None else code_batch["x"])
-        gen_x, gen_state = self.Gen.apply(params_gen, state["gen"], code_batch["x"], train=train)
+        gen_state, code_batch). ``code_batch`` overrides the z (and label)
+        draws; with ``sample_same_class`` the code labels are ``data_y``."""
+        code_batch = code_batch or {}
+        code_y = code_batch.get("y")
+        if code_y is None and self.sample_same_class and data_y is not None:
+            code_y = data_y
+        code_batch = self.sample_codes(generator, batch_size, code_batch.get("x"), code_y)
+        gen_x, gen_state = self.Gen.apply(params_gen, state["gen"], code_batch["x"], train=train,
+                                          label=code_batch["y"])
         return gen_x, gen_state, code_batch
 
     def dis_stage(self, params_dis: Dict, gen_x: torch.Tensor, state: Dict,
                   loss_state: LossState, x_real: torch.Tensor,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  y_real: Optional[torch.Tensor] = None, code_y: Optional[torch.Tensor] = None):
         """Discriminator + loss half: ONE D pass on concat(real, fake),
-        real first, then the penalty or scale, then the loss. NCHW inputs.
-        The loss's draws, then the penalty's, come from ``generator`` in
-        that order. Returns (loss_gen, loss_dis, dis_state, new_loss_state,
-        aux)."""
+        real first, against concat(``y_real``, ``code_y``) for a
+        conditional model, then the penalty or scale (on the real labels),
+        then the loss. NCHW inputs. The loss's draws, then the penalty's,
+        come from ``generator`` in that order. Returns (loss_gen, loss_dis,
+        dis_state, new_loss_state, aux)."""
         batch_size = x_real.shape[0]
-        dis_in = torch.cat([x_real, gen_x], dim=0)
-        scores, dis_state = self.Dis.apply(params_dis, state["dis"], dis_in, train=True)
+        dis_in = self.concat_two_batches({"x": x_real, "y": y_real}, {"x": gen_x, "y": code_y})
+        scores, dis_state = self.Dis.apply(params_dis, state["dis"], dis_in["x"], train=True,
+                                           label=dis_in["y"])
         s_x, s_gen = scores[:batch_size], scores[batch_size:]
         draws = self.loss_hp.draw(self.loss_type, s_gen, generator)
         dis_penalty = dis_scale = None
         if self.loss_type in GP_LOSSES:
             dis_penalty = self.gp_weight * self.mmd_gradient_penalty(
                 params_dis, state, x_real, gen_x, s_x, s_gen, mode=self.loss_type,
-                generator=generator)
+                generator=generator, labels=y_real)
         elif self.loss_type == "wasserstein":
             dis_penalty = self.gp_weight * self.gradient_penalty(
-                params_dis, state, x_real, gen_x, generator=generator)
+                params_dis, state, x_real, gen_x, generator=generator, labels=y_real)
         elif self.loss_type in DS_LOSSES:
-            dis_scale = self.mmd_gradient_scale(params_dis, state, x_real)
+            dis_scale = self.mmd_gradient_scale(params_dis, state, x_real, labels=y_real)
         loss_gen, loss_dis, new_loss_state, loss_aux = self.loss_hp.apply(
             s_gen, s_x, self.loss_type, batch_size=batch_size, d=self.score_size,
             dis_penalty=dis_penalty, dis_scale=dis_scale, state=loss_state, draws=draws)
@@ -268,6 +345,7 @@ class SNGan:
         mesh_num: Tuple[int, int] = (10, 10),
         mesh_mode=0,
         code_x=None,
+        code_y=None,
         real_batch: Optional[Dict] = None,
         get_dis_score: bool = True,
         do_sprite: bool = True,
@@ -280,7 +358,10 @@ class SNGan:
         """A sample grid from ``code_x`` or MeshCode latents (drawn from the
         CPU ``generator``); writes the sprite PNGs and, with
         ``do_embedding``, a TensorBoard-projector embedding of the scores
-        (``mmdgan_tpu/models/sngan.py:449-533``). Returns the file paths and
+        (``mmdgan_tpu/models/sngan.py:449-533``). A conditional model
+        generates ``code_y``'s classes, the real batch's under
+        ``sample_same_class``, else classes drawn from ``generator`` (a
+        CPU generator seeded 0 when None). Returns the file paths and
         arrays (``x_gen``, ``s_x``, ``s_gen`` as numpy)."""
         from mmdgan_torch.ops.mesh_code import MeshCode
         from mmdgan_torch.utils.folders import prepare_folder
@@ -292,7 +373,11 @@ class SNGan:
         if code_x is None:
             code_x = MeshCode(self.code_size, mesh_num=mesh_num).get_batch(
                 mesh_mode, generator=generator)
-        code_batch = self.sample_codes(None, batch_size, code_x)
+        if code_y is None and self.sample_same_class and real_batch is not None:
+            code_y = real_batch.get("y")
+        if code_y is None and self.num_class >= 2 and generator is None:
+            generator = torch.Generator().manual_seed(0)
+        code_batch = self.sample_codes(generator, batch_size, code_x, code_y)
         x_gen = self.generate(params, state, code_batch=code_batch)
         out = {"x_gen": x_gen.cpu().numpy()}
         real_x = None
@@ -302,8 +387,11 @@ class SNGan:
             real_np = real_x.cpu().numpy()
 
         if get_dis_score and real_x is not None:
+            both = self.concat_two_batches(
+                {"x": real_x, "y": self.as_labels(real_batch.get("y"), batch_size)},
+                {"x": x_gen, "y": code_batch["y"]})
             with torch.no_grad():
-                scores = self.discriminate(params, state, torch.cat([real_x, x_gen], dim=0))
+                scores = self.discriminate(params, state, both)
             out["s_x"], out["s_gen"] = (s.cpu().numpy() for s in torch.chunk(scores, 2))
 
         index = f"{sub_folder}_{global_step}_{mesh_mode}"

@@ -1,5 +1,6 @@
-"""Pairwise squared distances between score rows, and the slices of a
-combined distance matrix (``mmdgan_tpu/ops/distance.py:25-93,184-224``).
+"""Pairwise squared distances between score rows, their batched form for
+the non-local blocks, the reference checks, and the slices of a combined
+distance matrix (``mmdgan_tpu/ops/distance.py``).
 
 Gram form ``max(d_i - 2 G_ij + d_j, 0)``. The Gram products must run in
 full fp32, as the reference's HIGHEST-precision matmuls do: ``torch.matmul``
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -68,6 +70,67 @@ def get_squared_dist(x: torch.Tensor, y: Optional[torch.Tensor] = None,
         dy = torch.sum(ys * y, dim=1)
         return _dist_from_parts(dx, _gram(xs, y), dy)
     raise ValueError(f"Mode {mode} not supported")
+
+
+def get_squared_dist_ref(x: torch.Tensor, y: Optional[torch.Tensor] = None):
+    """Exact but slow O(m d n) distances, a cross-check of the Gram form
+    (math_func.py:861-888): dist_xx, or (dist_xx, dist_xy, dist_yy)."""
+    if x.dim() != 2:
+        raise ValueError("get_squared_dist_ref: input must be a matrix.")
+    pair = lambda a, b: torch.sum(torch.square(a[:, None, :] - b[None, :, :]), dim=-1)  # noqa: E731
+    if y is None:
+        return pair(x, x)
+    return pair(x, x), pair(x, y), pair(y, y)
+
+
+def squared_dist_triplet(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
+    """All pairwise distance matrices among three batches (math_func.py:892-931):
+    (d_xx, d_yy, d_zz, d_xy, d_xz, d_yz)."""
+    x_x, y_y, z_z = _gram(x, x), _gram(y, y), _gram(z, z)
+    d_x, d_y, d_z = torch.diagonal(x_x), torch.diagonal(y_y), torch.diagonal(z_z)
+    return (_dist_from_parts(d_x, x_x, d_x), _dist_from_parts(d_y, y_y, d_y),
+            _dist_from_parts(d_z, z_z, d_z), _dist_from_parts(d_x, _gram(x, y), d_y),
+            _dist_from_parts(d_x, _gram(x, z), d_z), _dist_from_parts(d_y, _gram(y, z), d_z))
+
+
+def get_batch_squared_dist(x_batch: torch.Tensor, y_batch: Optional[torch.Tensor] = None,
+                           axis: int = 1, mode: str = "xx"):
+    """Batched pairwise squared distances (math_func.py:954-1023), used by
+    the non-local 'dist' blocks. ``x_batch`` [N, a, b] and ``y_batch``
+    [N, c, d] hold their features on ``axis`` (1 or 2); ``mode`` as in
+    :func:`get_squared_dist`, returning [N, p, q] matrices."""
+    assert axis in (1, 2), "axis has to be 1 or 2."
+    if y_batch is not None and mode == "xx":
+        mode = "xy"
+    feat_last = lambda t: t.transpose(1, 2) if axis == 1 else t   # noqa: E731
+    bmm = lambda u, v: torch.matmul(u, v.transpose(1, 2))         # noqa: E731
+    parts = lambda da, g, db: torch.clamp(da[:, :, None] - 2.0 * g + db[:, None, :],  # noqa: E731
+                                          min=0.0)
+    xb = feat_last(x_batch)
+    if mode in ("xx", "xxxy", "xxxyyy"):
+        xxt = bmm(xb, xb)
+        dx = torch.diagonal(xxt, dim1=1, dim2=2)
+        dist_xx = parts(dx, xxt, dx)
+        if mode == "xx":
+            return dist_xx
+        yb = feat_last(y_batch)
+        dy = torch.sum(yb * yb, dim=2)
+        dist_xy = parts(dx, bmm(xb, yb), dy)
+        if mode == "xxxy":
+            return dist_xx, dist_xy
+        return dist_xx, dist_xy, parts(dy, bmm(yb, yb), dy)
+    if mode == "xy":
+        yb = feat_last(y_batch)
+        return parts(torch.sum(xb * xb, dim=2), bmm(xb, yb), torch.sum(yb * yb, dim=2))
+    raise ValueError(f"Mode {mode} not supported")
+
+
+def get_dist_np(x, y) -> np.ndarray:
+    """Numpy pairwise euclidean distances (math_func.py:935-950); the
+    reference returns the square root here."""
+    x = np.array(x, dtype=np.float32)
+    y = np.array(y, dtype=np.float32)
+    return np.sqrt(((x[:, None, :] - y[None, :, :]) ** 2).sum(-1), dtype=np.float32)
 
 
 def _true_first(mask: torch.Tensor) -> torch.Tensor:

@@ -24,15 +24,18 @@
   count (a ``[d, g]`` period list) or from a uniform draw and the carried
   average of ``loss_gen`` (``'dynamic'``).
 - ``build_device_data_step``: K steps whose batches are taken on the
-  device from a dataset that lives there, the sampler inside the graph;
-  it shares ``graph_steps``' window runner (``_window_runner``).
+  device from a dataset that lives there, the sampler inside the graph,
+  labelled and same-class too; it shares ``graph_steps``' window runner
+  (``_window_runner``).
+- ``same_class_tables`` / ``class_schedule``: the host tables of same-class
+  sampling, numpy copies of the JAX package's.
 - ``EpochPermuter``: the per-epoch layouts of ``sampling='shuffled_epochs'``.
 - ``build_eval_step``: eval-mode generation.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,10 +106,12 @@ def build_train_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
                    do_gen: bool = True, code_batch: Optional[Dict] = None):
         x = torch.as_tensor(data_batch["x"], device=dev)
         x = to_nchw(decode_image_batch({"x": x})["x"])
-        gen_x, gen_state, _ = model.gen_stage(
-            ts.params["gen"], ts.net_state, x.shape[0], ts.rng, code_batch)
+        y = model.as_labels(data_batch.get("y"), x.shape[0])
+        gen_x, gen_state, codes = model.gen_stage(
+            ts.params["gen"], ts.net_state, x.shape[0], ts.rng, code_batch, data_y=y)
         loss_gen, loss_dis, dis_state, new_loss_state, aux = model.dis_stage(
-            ts.params["dis"], gen_x, ts.net_state, ts.loss_state, x, generator=ts.rng)
+            ts.params["dis"], gen_x, ts.net_state, ts.loss_state, x, generator=ts.rng,
+            y_real=y, code_y=codes["y"])
         dis_leaves = tree_leaves(ts.params["dis"])
         gen_leaves = tree_leaves(ts.params["gen"])
         grads_dis = _grads(loss_dis, dis_leaves, retain_graph=True)
@@ -158,8 +163,10 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
     code_batch=None, uni=None) -> (ts, metrics)``, the signature of
     ``build_train_step`` plus ``uni`` ([B, 1, 1, 1], the penalty's
     interpolation weights, drawn when not given). It draws from the
-    state's generator in the fused step's order: all B rows of z, then
-    the loss's draws, then all B rows of ``uni``, split per micro-batch;
+    state's generator in the fused step's order: all B rows of z (and of
+    a conditional model's code labels), then the loss's draws, then all B
+    rows of ``uni``, split per micro-batch beside x, the labels y and z
+    (``mmdgan_tpu/train/step.py:242-257``);
     so at M=1, or on a model without BN, it equals the fused step up to
     summation order.
 
@@ -176,12 +183,15 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
                           loss_type in DS_LOSSES)
     needs_gx = is_gp or is_w
 
-    def micro_fwd(ts: TrainState, x: torch.Tensor, z: torch.Tensor):
+    def micro_fwd(ts: TrainState, mb: Dict):
         """Scores of concat(real, fake), real first; the new states; the
         generated images."""
-        gen_x, gen_state = model.Gen.apply(ts.params["gen"], ts.net_state["gen"], z, train=True)
-        scores, dis_state = model.Dis.apply(ts.params["dis"], ts.net_state["dis"],
-                                            torch.cat([x, gen_x], dim=0), train=True)
+        gen_x, gen_state = model.Gen.apply(ts.params["gen"], ts.net_state["gen"], mb["z"],
+                                           train=True, label=mb["zy"])
+        dis_in = model.concat_two_batches({"x": mb["x"], "y": mb["y"]},
+                                          {"x": gen_x, "y": mb["zy"]})
+        scores, dis_state = model.Dis.apply(ts.params["dis"], ts.net_state["dis"], dis_in["x"],
+                                            train=True, label=dis_in["y"])
         return scores, {"gen": gen_state, "dis": dis_state}, gen_x
 
     def train_step(ts: TrainState, data_batch: Dict, do_dis: bool = True, do_gen: bool = True,
@@ -191,8 +201,16 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         b = x.shape[0]
         if b % m_count:
             raise ValueError(f"a batch of {b} does not split into {m_count} micro-batches")
-        z = model.sample_codes(ts.rng, b, None if code_batch is None else code_batch["x"])["x"]
-        xs, zs = x.chunk(m_count), z.chunk(m_count)
+        y = model.as_labels(data_batch.get("y"), x.shape[0])
+        code_batch = code_batch or {}
+        code_y = code_batch.get("y")
+        if code_y is None and model.sample_same_class and y is not None:
+            code_y = y
+        codes = model.sample_codes(ts.rng, b, code_batch.get("x"), code_y)
+        split = lambda t: [None] * m_count if t is None else t.chunk(m_count)   # noqa: E731
+        mbs = [dict(zip(("x", "y", "z", "zy"), parts)) for parts in
+               zip(x.chunk(m_count), split(y), codes["x"].chunk(m_count), split(codes["y"]))]
+        xs, ys = x.chunk(m_count), split(y)
         dis_leaves = tree_leaves(ts.params["dis"])
         gen_leaves = tree_leaves(ts.params["gen"])
 
@@ -200,8 +218,8 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         n = b // m_count
         s_xs, s_gens, gxs, gx_abs = [], [], [], []
         with torch.no_grad():
-            for xm, zm in zip(xs, zs):
-                scores, _, gen_x = micro_fwd(ts, xm, zm)
+            for mb in mbs:
+                scores, _, gen_x = micro_fwd(ts, mb)
                 s_xs.append(scores[:n])
                 s_gens.append(scores[n:])
                 if needs_gx:
@@ -222,20 +240,23 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
             unis = torch.as_tensor(uni, dtype=torch.float32, device=dev).chunk(m_count)
             wrt = dis_leaves + ([s_x, s_gen] if is_gp else [])
             pen_sum, pen_gd = 0.0, [torch.zeros_like(t) for t in wrt]
-            for xm, gxm, um in zip(xs, gxs, unis):
+            for xm, ym, gxm, um in zip(xs, ys, gxs, unis):
                 if is_gp:
                     pen = model.mmd_gradient_penalty(ts.params["dis"], ts.net_state, xm, gxm,
-                                                     s_x, s_gen, mode=loss_type, uni=um)
+                                                     s_x, s_gen, mode=loss_type, uni=um,
+                                                     labels=ym)
                 else:
-                    pen = model.gradient_penalty(ts.params["dis"], ts.net_state, xm, gxm, uni=um)
+                    pen = model.gradient_penalty(ts.params["dis"], ts.net_state, xm, gxm, uni=um,
+                                                 labels=ym)
                 torch._foreach_add_(pen_gd, _grads(pen, wrt))
                 pen_sum = pen_sum + pen.detach()
             # the mean over B rows is the mean of the M equal micro means
             pen_in = (model.gp_weight * pen_sum / m_count).requires_grad_(True)
         elif is_ds:
             jaco_sum, pen_gd = 0.0, [torch.zeros_like(t) for t in dis_leaves]
-            fwd = lambda xx: model._dis_fwd(ts.params["dis"], ts.net_state, xx)
-            for xm in xs:
+            for xm, ym in zip(xs, ys):
+                def fwd(xx, ym=ym):
+                    return model._dis_fwd(ts.params["dis"], ts.net_state, xx, ym)
                 jaco = torch.mean(jacobian_squared_frobenius_norm(fwd, xm))
                 torch._foreach_add_(pen_gd, _grads(jaco, dis_leaves))
                 jaco_sum = jaco_sum + jaco.detach()
@@ -262,8 +283,8 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         grads_dis = [torch.zeros_like(t) for t in dis_leaves]
         grads_gen = [torch.zeros_like(t) for t in gen_leaves]
         state_sum = [torch.zeros_like(t) for t in tree_leaves(ts.net_state)]
-        for xm, zm, ct_d, ct_g in zip(xs, zs, cts_d, cts_g):
-            scores, new_state, _ = micro_fwd(ts, xm, zm)
+        for mb, ct_d, ct_g in zip(mbs, cts_d, cts_g):
+            scores, new_state, _ = micro_fwd(ts, mb)
             torch._foreach_add_(grads_dis, _grads(scores, dis_leaves, True, ct_d))
             torch._foreach_add_(grads_gen, _grads(scores, gen_leaves, False, ct_g))
             torch._foreach_add_(state_sum, tree_leaves(new_state))
@@ -370,15 +391,17 @@ def _graphed(dev: torch.device, capture: Optional[bool]) -> bool:
 
 
 def _window(step: Callable, ts: TrainState, num_steps: int, batch_at: Callable,
-            codes: Optional[torch.Tensor], do_dis: bool, do_gen: bool):
+            codes: Optional[Dict], do_dis: bool, do_gen: bool):
     """K steps; returns the [n_scalars, K] stacked scalar metrics, then one
-    [K, nbins] stack per ``hist/*`` metric, then the keys of both."""
+    [K, nbins] stack per ``hist/*`` metric, then the keys of both.
+    ``codes``: K-stacked z (and code labels) replacing the draws."""
     per_step = []
     for k in range(num_steps):
         if codes is None:
             ts, m = step(ts, batch_at(k), do_dis, do_gen)
         else:
-            ts, m = step(ts, batch_at(k), do_dis, do_gen, {"x": codes[k]})
+            ts, m = step(ts, batch_at(k), do_dis, do_gen,
+                         {key: None if v is None else v[k] for key, v in codes.items()})
         per_step.append(m)
     keys = tuple(k for k, v in per_step[0].items() if v.dim() == 0)
     hist_keys = tuple(k for k, v in per_step[0].items() if v.dim() > 0)
@@ -404,6 +427,28 @@ def _stacked(name: str, value, num_steps: int, dev: torch.device,
     return t
 
 
+class _Staging:
+    """Static device buffers, one per (name, shape, dtype): a graph reads
+    the buffer it was captured on, so each call copies its values in."""
+
+    def __init__(self):
+        self._bufs: Dict = {}
+
+    def __call__(self, name: str, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if t is None:
+            return None
+        key = (name, tuple(t.shape), t.dtype)
+        if key not in self._bufs:
+            self._bufs[key] = torch.empty_like(t)
+        buf = self._bufs[key]
+        buf.copy_(t, non_blocking=True)
+        return buf
+
+
+def _signature(*tensors) -> tuple:
+    return tuple(None if t is None else (tuple(t.shape), t.dtype) for t in tensors)
+
+
 def _window_runner(step: Callable, num_steps: int, capture: Optional[bool]) -> Callable:
     """The one path from a batch source to K steps, graphed or eager.
 
@@ -412,30 +457,32 @@ def _window_runner(step: Callable, num_steps: int, capture: Optional[bool]) -> C
     from tensors that keep their buffers across calls (``bound``, whose
     change drops the graphs) or from the state; ``key`` names the batch
     source's shapes; ``generators`` are drawn from by ``batch_at``. The
-    state's own generator is always registered: it draws z unless
-    ``code_batches`` replace them (staged into a static buffer per key),
-    and the losses' and penalties' draws in any case."""
+    state's own generator is always registered: it draws z (and a
+    conditional model's code labels) unless ``code_batches`` replace them
+    (staged into static buffers), and the losses' and penalties' draws in
+    any case."""
     graphs = StepGraphs()
-    codes: Dict = {}
+    stage = _Staging()
 
     def run(ts: TrainState, key, batch_at: Callable, bound: List[torch.Tensor],
             generators: List[torch.Generator], do_dis: bool, do_gen: bool,
             code_batches: Optional[Dict]):
         dev = ts.step.device
-        zs = _stacked("code batches", None if code_batches is None else code_batches["x"],
-                      num_steps, dev, torch.float32)
+        codes = None
+        if code_batches is not None:
+            codes = {"x": _stacked("code batches", code_batches["x"], num_steps, dev,
+                                   torch.float32),
+                     "y": _stacked("code labels", code_batches.get("y"), num_steps, dev,
+                                   torch.int64)}
         if not _graphed(dev, capture):
             return ts, _as_metrics(
-                _window(step, ts, num_steps, batch_at, zs, do_dis, do_gen), False)
-        key = (bool(do_dis), bool(do_gen), key, None if zs is None else tuple(zs.shape))
-        z_buf = None
-        if zs is not None:
-            if key not in codes:
-                codes[key] = torch.empty_like(zs)
-            z_buf = codes[key]
-            z_buf.copy_(zs, non_blocking=True)
+                _window(step, ts, num_steps, batch_at, codes, do_dis, do_gen), False)
+        key = (bool(do_dis), bool(do_gen), key,
+               None if codes is None else _signature(codes["x"], codes["y"]))
+        if codes is not None:
+            codes = {name: stage(name, v) for name, v in codes.items()}
         out = graphs.run(key, ts.tensors() + bound, [ts.rng] + generators,
-                         lambda: _window(step, ts, num_steps, batch_at, z_buf, do_dis, do_gen))
+                         lambda: _window(step, ts, num_steps, batch_at, codes, do_dis, do_gen))
         return ts, _as_metrics(out, True)
 
     run.graphs = graphs
@@ -443,22 +490,22 @@ def _window_runner(step: Callable, num_steps: int, capture: Optional[bool]) -> C
 
 
 def _host_window(step: Callable, num_steps: int, capture: Optional[bool]) -> Callable:
-    """``_window_runner`` fed K-stacked host batches, each shape staged
-    into its own static buffer (the graph reads it on replay)."""
+    """``_window_runner`` fed K-stacked host batches (x, and labels y when
+    given), each shape staged into its own static buffer (the graph reads
+    it on replay)."""
     run = _window_runner(step, num_steps, capture)
-    staged: Dict = {}
+    stage = _Staging()
 
     def window(ts: TrainState, batches: Dict, bound: List[torch.Tensor],
                generators: List[torch.Generator], do_dis: bool, do_gen: bool,
                code_batches: Optional[Dict]):
-        xs = _stacked("batches", batches["x"], num_steps, ts.step.device)
-        key = (tuple(xs.shape), xs.dtype)
-        if key not in staged:
-            staged[key] = torch.empty_like(xs)
-        x_buf = staged[key]
-        x_buf.copy_(xs, non_blocking=True)
-        return run(ts, key, lambda k: {"x": x_buf[k]}, bound, generators, do_dis, do_gen,
-                   code_batches)
+        dev = ts.step.device
+        xs = _stacked("batches", batches["x"], num_steps, dev)
+        ys = _stacked("labels", batches.get("y"), num_steps, dev, torch.int64)
+        key = _signature(xs, ys)
+        x_buf, y_buf = stage("x", xs), stage("y", ys)
+        return run(ts, key, lambda k: {"x": x_buf[k], "y": None if y_buf is None else y_buf[k]},
+                   bound, generators, do_dis, do_gen, code_batches)
 
     window.graphs = run.graphs
     return window
@@ -561,6 +608,76 @@ def build_imbalanced_multi_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optim
                            imbalanced, capture)
 
 
+def same_class_tables(y, num_class: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host per-class row tables for same-class sampling (the reference's
+    group_by_window batching, input_func.py:905-916; a copy of
+    ``mmdgan_tpu/train/step.py:567-586``, bitwise equal).
+
+    Returns (table [num_class, max_count] int32, counts [num_class] int32):
+    ``table[c, :counts[c]]`` are the rows of class c, repeated to pad."""
+    y = np.asarray(y).reshape(-1)
+    counts = np.asarray([(y == c).sum() for c in range(num_class)], np.int32)
+    assert counts.min() > 0, "every class needs at least one example"
+    width = int(counts.max())
+    table = np.zeros((num_class, width), np.int32)
+    for c in range(num_class):
+        table[c] = np.resize(np.nonzero(y == c)[0].astype(np.int32), width)
+    return table, counts
+
+
+def class_schedule(num_class: int, n_steps: int, seed: int) -> np.ndarray:
+    """Host class schedule of same-class ``shuffled_epochs`` sampling (a
+    copy of ``mmdgan_tpu/train/step.py:632-655``, bitwise equal): [n_steps,
+    2] int32 rows ``(c_t, k_t)``, the class of step t and how many earlier
+    steps drew it. A pure function of (seed, num_class), so a resumed run
+    regenerates it from the checkpointed step."""
+    draws = np.random.RandomState((seed * 1000003 + 777) % (2**31 - 1)).randint(
+        0, num_class, size=n_steps).astype(np.int32)
+    k = np.zeros(n_steps, np.int32)
+    for c in range(num_class):
+        pos = np.nonzero(draws == c)[0]
+        k[pos] = np.arange(pos.size, dtype=np.int32)
+    return np.stack([draws, k], axis=1)
+
+
+def _int64(v: int) -> int:
+    """A 64-bit constant as the signed value a torch int64 holds."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+_GOLDEN, _MIX1, _MIX2 = (_int64(0x9E3779B97F4A7C15), _int64(0xBF58476D1CE4E5B9),
+                         _int64(0x94D049BB133111EB))
+
+
+def _shr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 (torch's ``>>`` keeps the sign)."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def splitmix64(x: torch.Tensor) -> torch.Tensor:
+    """The splitmix64 finalizer on int64 tensors (wrapping arithmetic)."""
+    x = x + _GOLDEN
+    x = (x ^ _shr(x, 30)) * _MIX1
+    x = (x ^ _shr(x, 27)) * _MIX2
+    return x ^ _shr(x, 31)
+
+
+def class_epoch_slots(seed: int, c: torch.Tensor, e: torch.Tensor, count: torch.Tensor,
+                      width: int) -> torch.Tensor:
+    """A uniform permutation of class ``c``'s ``count`` valid slots for its
+    class-epoch ``e``: the argsort of counter-based hashes of (seed, c, e,
+    slot), the padded slots pushed past the valid ones. A pure function of
+    its arguments, computed on the device (the counterpart of JAX's
+    ``fold_in(fold_in(key, c), e)`` uniforms, ``step.py:763-801``; the
+    numbers differ)."""
+    slot = torch.arange(width, device=c.device, dtype=torch.int64)
+    h = splitmix64(splitmix64(splitmix64(torch.full_like(c, seed, dtype=torch.int64))
+                              ^ c.long()) ^ e.long())
+    keys = splitmix64(h ^ slot) & ((1 << 63) - 1)
+    keys = torch.where(slot < count, keys, torch.full_like(keys, (1 << 63) - 1))
+    return torch.argsort(keys, stable=True)
+
+
 def build_device_data_step(
     model: SNGan,
     opt_dis: Optimizer,
@@ -568,7 +685,10 @@ def build_device_data_step(
     num_steps: int,
     batch_size: int,
     same_class: bool = False,
+    class_table=None,
+    class_counts=None,
     sampling: str = "uniform",
+    sampler_seed: int = 0,
     micro_batches: int = 1,
     device: DeviceLike = None,
     capture: Optional[bool] = None,
@@ -577,10 +697,10 @@ def build_device_data_step(
     dataset already there: no host-to-device copy per step.
 
     Returns ``fn(ts, data_x, data_y, rng, do_dis=True, do_gen=True,
-    code_batches=None) -> (ts, metrics)``; ``data_x`` is the [N, H, W, C]
-    dataset (uint8 or float) on the state's device, ``data_y`` must be
-    None (labels feed the conditional models, ROADMAP A13). ``rng`` is a
-    generator on that device; it advances in place (JAX returns a new key).
+    code_batches=None, schedule=None) -> (ts, metrics)``; ``data_x`` is the
+    [N, H, W, C] dataset (uint8 or float) on the state's device, ``data_y``
+    its [N, 1] int labels there or None. ``rng`` is a generator on that
+    device; it advances in place (JAX returns a new key).
 
     ``sampling``:
     - ``"uniform"``: B indices drawn with replacement from ``rng``, then a
@@ -589,51 +709,116 @@ def build_device_data_step(
       B``, ``step`` read on the device, over a dataset the caller
       re-permutes at epoch boundaries (``EpochPermuter``); ``rng`` unused.
 
+    ``same_class`` takes every batch from one class (group_by_window,
+    ``mmdgan_tpu/train/step.py:817-833``), with ``class_table`` and
+    ``class_counts`` from ``same_class_tables``; its labels are the class
+    (``data_y`` may be None):
+    - under ``uniform``, the class and the B slots come from ``rng``
+      (``floor(u * count)``, the count read on the device);
+    - under ``shuffled_epochs``, ``schedule`` ([K, 2] rows of
+      ``class_schedule``, on the device) names each step's class and its
+      draw count k; each class walks its own without-replacement epochs,
+      slice ``k % (count // B)`` of the permutation of class-epoch
+      ``k // (count // B)`` (``class_epoch_slots`` from ``sampler_seed``):
+      nothing is carried, so a resume replays the streams. Every class
+      needs at least B rows.
+
     The sampler runs inside the same CUDA graph as the steps, made as
     ``graph_steps`` makes its graphs (``_window_runner``); ``capture=False``
-    runs the K steps eagerly. ``fn.sampler(data_x)`` returns it as
-    ``sample(rng, step) -> batch``. ``micro_batches`` > 1 swaps the step
-    for ``build_grad_accum_step`` behind the same sampler and windows
-    (``mmdgan_tpu/train/step.py:723-732``). Same-class sampling (ROADMAP
-    A12) and the mesh (``with_mesh``, ROADMAP A15) raise."""
-    if same_class:
-        raise NotImplementedError("same-class sampling is not ported yet (ROADMAP A12)")
+    runs the K steps eagerly. ``fn.sampler(data_x, data_y)`` returns it as
+    ``sample(rng, step, sched=None) -> batch``. ``micro_batches`` > 1 swaps
+    the step for ``build_grad_accum_step`` behind the same sampler and
+    windows (``mmdgan_tpu/train/step.py:723-732``). The mesh
+    (``with_mesh``, ROADMAP A15) raises."""
     if sampling not in ("uniform", "shuffled_epochs"):
         raise ValueError(f"unknown sampling {sampling!r}")
     if int(micro_batches) < 1 or batch_size % int(micro_batches):
         raise ValueError(f"a batch of {batch_size} does not split into "
                          f"{micro_batches} micro-batches")
+    scheduled = same_class and sampling == "shuffled_epochs"
+    if same_class:
+        if class_table is None or class_counts is None:
+            raise ValueError("same_class sampling needs same_class_tables(y, num_class)")
+        class_table = np.asarray(class_table)
+        class_counts = np.asarray(class_counts)
+        if scheduled and int(class_counts.min()) < batch_size:
+            raise ValueError(f"same_class + shuffled_epochs needs every class to hold >= "
+                             f"batch_size rows; min count {int(class_counts.min())} < "
+                             f"{batch_size}")
     step = (build_train_step(model, opt_dis, opt_gen, device) if int(micro_batches) == 1 else
             build_grad_accum_step(model, opt_dis, opt_gen, micro_batches, device))
     run = _window_runner(step, num_steps, capture)
+    stage = _Staging()
+    tables: Dict = {}   # device copies of the class tables, made once per device
 
-    def sampler(data_x: torch.Tensor, data_y=None) -> Callable:
-        if data_y is not None:
-            raise NotImplementedError("labelled datasets feed the conditional models, "
-                                      "which are not ported yet (ROADMAP A13)")
-        n = data_x.shape[0]
-        if sampling == "shuffled_epochs":
-            n_batches = n // batch_size
+    def _tables(dev):
+        if dev not in tables:
+            tables[dev] = (torch.as_tensor(class_table, dtype=torch.int64, device=dev),
+                           torch.as_tensor(class_counts, dtype=torch.int64, device=dev))
+        return tables[dev]
+
+    def sampler(data_x: torch.Tensor, data_y: Optional[torch.Tensor] = None) -> Callable:
+        n, dev = data_x.shape[0], data_x.device
+        b = batch_size
+
+        def take(idx, c=None):
+            y = (data_y.index_select(0, idx) if data_y is not None else
+                 None if c is None else c.expand(b, 1).clone())
+            return {"x": data_x.index_select(0, idx), "y": y}
+
+        if same_class:
+            tbl, cnt = _tables(dev)
+            # a class's row table and count, gathered on the device
+            row_of = lambda c: (tbl.index_select(0, c.view(1))[0],   # noqa: E731
+                                cnt.index_select(0, c.view(1))[0])
+            if scheduled:
+                def sample(rng, step_count, sched):
+                    c, k = sched[0].long(), sched[1].long()
+                    rows_c, count = row_of(c)
+                    dpe = torch.clamp(count // b, min=1)
+                    slots = class_epoch_slots(sampler_seed, c, k // dpe, count, tbl.shape[1])
+                    rows = torch.arange(b, device=dev) + (k % dpe) * b
+                    return take(rows_c.index_select(0, slots.index_select(0, rows)), c)
+            else:
+                def sample(rng, step_count, sched=None):
+                    # one class per batch, B slots of it (group_by_window)
+                    u = torch.rand(b + 1, generator=rng, device=dev, dtype=torch.float64)
+                    c = torch.clamp((u[0] * tbl.shape[0]).long(), max=tbl.shape[0] - 1)
+                    rows_c, count = row_of(c)
+                    slot = torch.minimum((u[1:] * count).long(), count - 1)
+                    return take(rows_c.index_select(0, slot), c)
+        elif sampling == "shuffled_epochs":
+            n_batches = n // b
             if n_batches < 1:
-                raise ValueError(f"{n} rows hold no batch of {batch_size}")
+                raise ValueError(f"{n} rows hold no batch of {b}")
 
-            def sample(rng, step_count):
-                off = (step_count.long() % n_batches) * batch_size
-                rows = torch.arange(batch_size, device=data_x.device) + off
-                return {"x": data_x.index_select(0, rows)}
+            def sample(rng, step_count, sched=None):
+                return take(torch.arange(b, device=dev) + (step_count.long() % n_batches) * b)
         else:
-            def sample(rng, step_count):
-                idx = torch.randint(0, n, (batch_size,), generator=rng, device=data_x.device)
-                return {"x": data_x.index_select(0, idx)}
+            def sample(rng, step_count, sched=None):
+                return take(torch.randint(0, n, (b,), generator=rng, device=dev))
         return sample
 
     def multi_step(ts: TrainState, data_x: torch.Tensor, data_y, rng: torch.Generator,
-                   do_dis: bool = True, do_gen: bool = True, code_batches: Optional[Dict] = None):
+                   do_dis: bool = True, do_gen: bool = True, code_batches: Optional[Dict] = None,
+                   schedule=None):
         if data_x.device != ts.step.device:
             raise ValueError(f"dataset on {data_x.device}, state on {ts.step.device}")
+        if scheduled and schedule is None:
+            raise ValueError("same_class + shuffled_epochs needs the window's class schedule")
         sample = sampler(data_x, data_y)
-        return run(ts, (tuple(data_x.shape), data_x.dtype), lambda k: sample(rng, ts.step),
-                   [data_x], [rng] if sampling == "uniform" else [], do_dis, do_gen, code_batches)
+        sched = None
+        bound = [data_x] + ([] if data_y is None else [data_y])
+        if scheduled:
+            sched = stage("schedule", _stacked("schedule rows", schedule, num_steps,
+                                               data_x.device, torch.int64))
+            bound += list(_tables(data_x.device))
+        elif same_class:
+            bound += list(_tables(data_x.device))
+        key = _signature(data_x, data_y, sched)
+        batch_at = lambda k: sample(rng, ts.step, None if sched is None else sched[k])  # noqa: E731
+        return run(ts, key, batch_at, bound, [rng] if sampling == "uniform" else [],
+                   do_dis, do_gen, code_batches)
 
     def with_mesh(*args, **kwargs):
         raise NotImplementedError("the dataset sharded over a mesh is not ported yet (ROADMAP A15)")

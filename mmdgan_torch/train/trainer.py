@@ -24,8 +24,9 @@ device-resident training, checkpoints, guards, summaries, profiling.
 - ``debug_mode=None`` prints the model description and returns without
   running (:1195-1204); ``True`` caps a run at ``debug_step``.
 
-Not ported: the mesh (``dp``, ROADMAP A15), same-class sampling (ROADMAP
-A12, with the conditional models of A13).
+Labels ride in the batches (``{'x', 'y'}``) of both loops; a conditional
+model takes them, and ``sample_same_class`` draws each device-data batch
+from one class. Not ported: the mesh (``dp``, ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -44,8 +45,10 @@ from mmdgan_torch.train.state import TrainState
 from mmdgan_torch.train.step import (
     EpochPermuter,
     build_device_data_step,
+    class_schedule,
     graph_steps,
     imbalanced_scan,
+    same_class_tables,
 )
 from mmdgan_torch.utils import checkpoint
 from mmdgan_torch.utils.folders import prepare_folder
@@ -433,9 +436,9 @@ class Agent:
         micro_batches: int = 1,
     ) -> TrainState:
         """Training over a dataset resident in device memory: ``data``
-        ({'x': [N,H,W,C] uint8 or float, 'y': None}, e.g. from
-        ``ReadTFRecords.load_all``) is uploaded once, and the batches are
-        taken on the device inside each graphed K-step window
+        ({'x': [N,H,W,C] uint8 or float, 'y': [N, 1] int labels or None},
+        e.g. from ``ReadTFRecords.load_all``) is uploaded once, and the
+        batches are taken on the device inside each graphed K-step window
         (``build_device_data_step``): no host-to-device copy per step.
         Same guards, summaries and checkpoints as ``train``.
 
@@ -449,29 +452,42 @@ class Agent:
         boundary crossed inside a window keeps the previous layout for
         the rest of that window. ``micro_batches`` M > 1 runs the
         accumulated step (``build_grad_accum_step``) in the same windows.
-        ``sample_same_class`` raises (ROADMAP A12)."""
+
+        ``sample_same_class`` draws every batch from one class (labels in
+        ``data['y']``; ``mmdgan_tpu/train/trainer.py:535-770`` without the
+        mesh): the class tables are built once per call; under
+        ``shuffled_epochs`` each window gets its rows of ``class_schedule``
+        (from ``sampling_seed``, regenerated from the step a resumed run
+        starts at) as device data, and each class walks its own
+        without-replacement epochs, permuted on the device."""
         if self.debug_mode is None:
             print("Agent: debug_mode=None, nothing to run.")
             return ts
-        if sample_same_class:
-            raise NotImplementedError("same-class sampling is not ported yet (ROADMAP A12)")
-        if data.get("y") is not None:
-            raise NotImplementedError("labelled datasets feed the conditional models, "
-                                      "which are not ported yet (ROADMAP A13)")
+        host_y = None if data.get("y") is None else np.asarray(data["y"])
+        if sample_same_class and host_y is None:
+            raise ValueError("sample_same_class needs labels in data['y']")
         if self.debug_mode:
             max_step = min(max_step, self.debug_step)
         k = steps_per_call
         shuffled = sampling == "shuffled_epochs"
+        scheduled = shuffled and sample_same_class
         if sampling_seed is None:
             sampling_seed = seed
         dev = ts.step.device
+        table = counts = None
+        if sample_same_class:
+            table, counts = same_class_tables(host_y, model.num_class)
 
         def get_fn(num_steps):
+            tkey = None if table is None else (table.tobytes(), counts.tobytes())
             key = (id(model), id(opt_dis), id(opt_gen), num_steps, batch_size, sampling,
-                   micro_batches)
+                   micro_batches, sample_same_class, tkey,
+                   sampling_seed if scheduled else None)
             if key not in self._windows:
                 self._windows[key] = ((model, opt_dis, opt_gen), build_device_data_step(
-                    model, opt_dis, opt_gen, num_steps, batch_size, sampling=sampling,
+                    model, opt_dis, opt_gen, num_steps, batch_size,
+                    same_class=sample_same_class, class_table=table, class_counts=counts,
+                    sampling=sampling, sampler_seed=sampling_seed,
                     micro_batches=micro_batches, device=dev))
             return self._windows[key][1]
 
@@ -479,36 +495,45 @@ class Agent:
         if self.load_ckpt:
             ts = self.restore(ts)
         data_x = torch.tensor(np.asarray(data["x"]), device=dev)   # a copy: permuted in place
+        data_y = None if host_y is None else torch.tensor(host_y.astype(np.int64), device=dev)
         rng = torch.Generator(dev).manual_seed(seed + 54321)
         start_step = int(ts.step)
         start = time.time()
-        if shuffled:
+        if shuffled and not scheduled:
             n_batches = data_x.shape[0] // batch_size
             if n_batches < 1:
                 raise ValueError(f"{data_x.shape[0]} rows hold no batch of {batch_size}")
             permuter = EpochPermuter.single_device(data_x.shape[0], sampling_seed)
             # a resumed run jumps straight to its epoch's layout
-            permuter.advance(start_step // n_batches, [data_x])
+            permuter.advance(start_step // n_batches, [data_x, data_y])
         if max_step < k:
             k = max_step
             fn = get_fn(k)
         num_calls = max_step // k if k else 0
         remainder = max_step - num_calls * k
+        # one global class draw per step, regenerated from the seed: a
+        # resumed run continues every class's stream where it stopped
+        sched = (class_schedule(model.num_class, start_step + max_step, sampling_seed)
+                 if scheduled else None)
+
+        def invoke(fn_, off, n):
+            rows = None if sched is None else sched[off:off + n]
+            return fn_(ts, data_x, data_y, rng, schedule=rows)
 
         with _PreemptionGuard(self.handle_preemption) as guard:
             for call in range(num_calls):
-                if shuffled:
-                    permuter.advance((start_step + call * k) // n_batches, [data_x])
-                ts, metrics = fn(ts, data_x, None, rng)
+                if shuffled and not scheduled:
+                    permuter.advance((start_step + call * k) // n_batches, [data_x, data_y])
+                ts, metrics = invoke(fn, start_step + call * k, k)
                 if not self._after_window(ts, metrics, start_step, call, num_calls, k, start,
                                           step_per_epoch, force_print):
                     return ts
                 if guard.requested:
                     break
         if remainder and not guard.requested:
-            if shuffled:
-                permuter.advance((start_step + num_calls * k) // n_batches, [data_x])
-            ts, _ = get_fn(remainder)(ts, data_x, None, rng)
+            if shuffled and not scheduled:
+                permuter.advance((start_step + num_calls * k) // n_batches, [data_x, data_y])
+            ts, _ = invoke(get_fn(remainder), start_step + num_calls * k, remainder)
         return self._finish(ts, int(ts.step) - start_step, start, summary_image_fn)
 
     def _abnormal_save(self, ts, step, vals):

@@ -4,15 +4,23 @@ The trees come in as numpy (callers run ``jax.device_get`` first), so
 this module imports no JAX. Conversions (``utils/tf1_import.py`` does the
 inverse permutations and is the model followed here):
 
-- conv kernels HWIO -> OIHW;
+- conv kernels HWIO -> OIHW (``c``, ``cck``, the separable conv's
+  pointwise kernel); the depthwise kernel ``[k, k, C_in, 1]`` ->
+  ``[C_in, 1, k, k]``;
 - transposed-conv kernels HWIO (``lax.conv_transpose``) -> torch's
-  ``[in, out, k, k]``, spatially flipped;
-- dense kernels stay ``[in, out]``, but where a flatten or an image
-  reshape sits next to them the JAX package orders features H-major
-  (h, w, c) and the port C-major (c, h, w): rows after a flatten, columns
-  and bias before an image ``out_reshape`` are permuted;
-- power vectors NHWC -> NCHW; a dense one gets the permutation of the
-  side it lives on;
+  ``[in, out, k, k]``, spatially flipped (``tc``, ``tcck``);
+- dense kernels stay ``[in, out]`` (``d``, ``dcd``, ``dck``; ``dcd``'s
+  ``[C, in, out]`` c_kernel too), but where a flatten or an image reshape
+  sits next to them the JAX package orders features H-major (h, w, c) and
+  the port C-major (c, h, w): rows after a flatten (and ``project``'s
+  input features), columns, biases, BN and cbn parameters before an image
+  ``out_reshape`` are permuted;
+- per-class tables (cbn's scale/offset, ``c_bias``, the cck/tcck scales)
+  ``[C, 1, 1, ch]`` -> ``[C, ch, 1, 1]``; over dense features ``[C, F]``
+  with the column permutation;
+- power vectors NHWC -> NCHW (per class for the conditional ops); a dense
+  one gets the permutation of the side it lives on; PIM vectors stay, the
+  port's PIM matrix being the JAX package's (``spectral_norm.pim_matrix``);
 - optimizer slots like their parameters (optax adam's ``mu``/``nu``,
   ``adam_tf1``'s ``m``/``v``, momentum's ``trace``, rmsprop's ``nu``; bf16
   slots stay bf16), ``count`` as a 0-d int32 tensor (optax adam's count,
@@ -65,31 +73,75 @@ def _per_feature(a: np.ndarray, cols) -> np.ndarray:
     return a[cols] if cols is not None and a.shape[0] == len(cols) else a
 
 
+def _per_class(a: np.ndarray, cols) -> np.ndarray:
+    """A per-class table: [C, 1, 1, ch] over images -> [C, ch, 1, 1]; [C, F]
+    over dense features with the column permutation."""
+    if a.ndim == 4:
+        return a.transpose(0, 3, 1, 2)
+    return a[:, cols] if cols is not None and a.shape[1] == len(cols) else a
+
+
+def _dense(a: np.ndarray, rows, cols) -> np.ndarray:
+    """A dense kernel [..., in, out] with the row and column permutations."""
+    if rows is not None:
+        a = a[..., rows, :]
+    if cols is not None:
+        a = a[..., cols]
+    return a
+
+
+def _conv(a: np.ndarray) -> np.ndarray:          # HWIO -> OIHW
+    return a.transpose(3, 2, 0, 1)
+
+
+def _conv_t(a: np.ndarray) -> np.ndarray:        # HWIO -> [in, out, k, k], flipped
+    return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+
+
 def _param(op, name: str, a: np.ndarray, rows, cols) -> np.ndarray:
-    """One parameter-shaped array (a parameter or its Adam slot) of ``op``."""
-    op_kind = op.design["op"]
-    if op_kind == "d":
-        if rows is not None:
-            a = a[rows, :]
-        if cols is not None:
-            a = a[:, cols]
-        return a
-    if op_kind == "c":
-        return a.transpose(3, 2, 0, 1)
-    if op_kind == "tc":
-        return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-    if op_kind in ("b", "bias", "bn"):
+    """One parameter-shaped array (a parameter or its optimizer slot) of ``op``."""
+    kind = op.design["op"]
+    if name == "c_kernel":
+        if kind == "dcd":
+            return _dense(a, rows, cols)
+        return _per_class(a, cols)               # dck [C, out]; cck/tcck [C, 1, 1, out]
+    if name == "kernel":
+        if kind in ("d", "dcd", "dck"):
+            return _dense(a, rows, cols)
+        if kind == "project":                    # [C, in]: the input features
+            return a if rows is None else a[:, rows]
+        if kind in ("c", "cck"):
+            return _conv(a)
+        if kind in ("tc", "tcck"):
+            return _conv_t(a)
+        if kind == "k":
+            return a
+    if name == "depthwise_kernel":               # [k, k, C_in, 1] -> [C_in, 1, k, k]
+        return a.transpose(2, 3, 0, 1)
+    if name == "pointwise_kernel":
+        return _conv(a)
+    if name in ("scale", "offset", "c_bias"):
+        return _per_class(a, cols)
+    if name in ("bias", "gamma", "beta"):
         return _per_feature(a, cols)
-    raise NotImplementedError(f"bridge: op {op_kind} is not ported")
+    raise NotImplementedError(f"bridge: {kind} parameter {name} is not ported")
 
 
 def _state(op, name: str, a: np.ndarray, rows, cols) -> np.ndarray:
+    """One state array of ``op``: BN statistics, or a power vector (NHWC ->
+    NCHW per class; a dense one with the permutation of its side; a PIM
+    vector, which lives in the JAX package's matrix layout, as it is)."""
     if name != "sn_x":
         return _per_feature(a, cols)   # BN statistics
+    if op.use_pim:
+        return a
     if a.ndim == 4:
         return a.transpose(0, 3, 1, 2)
-    perm = rows if use_u(op.sn_def) else cols
-    return a if perm is None else a[:, perm]
+    if op.design["op"] == "project":   # output side: the classes
+        perm = rows if use_u(op.sn_def) else None
+    else:
+        perm = rows if use_u(op.sn_def) else cols
+    return a if perm is None else a[..., perm]
 
 
 def _convert(model: SNGan, tree: Dict, leaf_fn, device, dtype=torch.float32) -> Dict:

@@ -95,9 +95,12 @@ def test_uniform_draws_are_in_range_and_move():
 
 
 def test_unported_sampling_options_raise():
+    """The mesh still raises (ROADMAP A15); same-class sampling (ported)
+    raises without its class tables; a labelled dataset is sampled with
+    its labels."""
     model = SNGan(ARCH, device="cpu")
     opt_d, opt_g = multi_opt_config([1e-3, 1e-3])
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="same_class_tables"):
         build_device_data_step(model, opt_d, opt_g, 2, B, same_class=True, device="cpu")
     # micro-batches are ported: a count that does not split the batch raises
     with pytest.raises(ValueError, match="micro-batches"):
@@ -105,8 +108,10 @@ def test_unported_sampling_options_raise():
     fn = build_device_data_step(model, opt_d, opt_g, 2, B, device="cpu")
     with pytest.raises(NotImplementedError, match="A15"):
         fn.with_mesh(None)
-    with pytest.raises(NotImplementedError, match="A13"):
-        fn.sampler(torch.zeros(N, 8, 8, 1), torch.zeros(N, 1))
+    data_y = torch.arange(N).reshape(N, 1)
+    batch = fn.sampler(torch.arange(N, dtype=torch.float32).reshape(N, 1, 1, 1).expand(
+        N, 8, 8, 1), data_y)(torch.Generator().manual_seed(0), torch.tensor(0))
+    assert torch.equal(batch["y"][:, 0].float(), batch["x"][:, 0, 0, 0])
 
 
 def _images(n=24, seed=0):

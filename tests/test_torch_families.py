@@ -100,15 +100,21 @@ def test_family_builds_like_jax(family):
 
 def test_hd_total_parameters_and_refusals():
     """hd512 holds JAX's 58,302,803 parameters; the conditional variant
-    raises naming ROADMAP A13, a size that is not a power of two raises."""
+    builds with JAX's parameter count (cbn generator, dck head over 10
+    classes); a size that is not a power of two raises."""
     model = SNGan(architectures.hd_architecture(512), device="cpu")
     total = sum(n for ops in _port_param_sizes(model).values()
                 for leaves in ops.values() for n in leaves.values())
     jparams = jax.eval_shape(JaxSNGan(jax_arch.hd_architecture(512)).init,
                              jax.random.PRNGKey(0))[0]
     assert total == sum(int(np.prod(x.shape)) for x in jax.tree.leaves(jparams)) == 58302803
-    with pytest.raises(NotImplementedError, match="A13"):
-        architectures.hd_architecture(64, conditional=True)
+    arch = architectures.hd_architecture(64, conditional=True)
+    assert arch == jax_arch.hd_architecture(64, conditional=True)
+    cond = SNGan(arch, num_class=10, device="cpu")
+    jcond = jax.eval_shape(JaxSNGan(arch, num_class=10).init, jax.random.PRNGKey(0))[0]
+    params, _, _ = cond.init(0)
+    assert (sum(t.numel() for t in tree_leaves(params))
+            == sum(int(np.prod(x.shape)) for x in jax.tree.leaves(jcond)))
     with pytest.raises(ValueError, match="power of two"):
         architectures.hd_architecture(48)
 

@@ -19,6 +19,7 @@ import torch
 
 from mmdgan_tpu.ops.spectral_norm import SnDef as JaxSnDef
 from mmdgan_tpu.ops.spectral_norm import spectral_norm_apply as jax_sn_apply
+from mmdgan_torch.ops.conv import Geometry
 from mmdgan_torch.ops.spectral_norm import SnDef, spectral_norm_apply, use_u
 
 torch.set_num_threads(1)
@@ -58,8 +59,8 @@ def test_spectral_norm_matches_jax(case):
         w_t = (w.transpose(3, 2, 0, 1) if op == "c"
                else w.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1].copy())
     jsn = JaxSnDef(op=op, input_shape=ish, output_shape=osh, strides=s)
-    sn = SnDef(op=op, input_shape=_chw(ish), output_shape=_chw(osh), strides=s,
-               padding=1 if op != "d" else 0)
+    geometry = None if op == "d" else Geometry.make(op, ish[:2], k, s)
+    sn = SnDef(op=op, input_shape=_chw(ish), output_shape=_chw(osh), geometry=geometry)
     side = ish if use_u(sn) else osh
     # an unnormalized truncated normal, as a fresh power vector is
     x = np.clip(rng.randn(1, *side), -2, 2).astype(np.float32)

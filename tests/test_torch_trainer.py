@@ -453,14 +453,31 @@ def test_cifar_cli_other_loss_with_histograms(tmp_path):
     pytest.param(["--skip-sampling", "--skip-metrics", "--use-pallas"], "B1", id="flags1-B1"),
     pytest.param(["--skip-sampling", "--skip-metrics", "--compilation-cache", "cache"], "A16",
                  id="flags2-A16"),
-    pytest.param(["--skip-sampling", "--skip-metrics", "--num-class", "10"], "A13",
-                 id="flags4-A13"),
-    pytest.param(["--skip-sampling", "--skip-metrics", "--sample-same-class"], "A12",
-                 id="flags5-A12"),
 ])
 def test_cifar_cli_refuses_unported_flags(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cifar_main(["--device", "cpu", "--out-dir", str(tmp_path), *flags])
+
+
+# --num-class and --sample-same-class run now (the conditional models and
+# same-class sampling, tests/test_torch_conditional.py)
+@pytest.mark.parametrize("flags", [
+    pytest.param(["--num-class", "4"], id="num-class"),
+    pytest.param(["--num-class", "4", "--sample-same-class"], id="sample-same-class"),
+])
+def test_cifar_cli_trains_the_conditional_model(tmp_path, flags):
+    """``--num-class 4`` trains the conditional CIFAR model (cbn generator,
+    dck head) on synthetic labelled batches through K=2 windows and writes
+    its sprite; its checkpoint holds the per-class parameters."""
+    cifar_main(["--device", "cpu", "--out-dir", str(tmp_path), "--synthetic-data",
+                "--debug-mode", "true", "--debug-step", "4", "--steps-per-call", "2",
+                "--batch-size", "8", "--chunks", "1", "--skip-metrics", "--compute-dtype",
+                "float32", *flags])
+    run = os.listdir(tmp_path / "cifar_ckpt")[0]
+    ckpt = torch.load(tmp_path / "cifar_ckpt" / run / "ckpt-4.pt", weights_only=False)
+    flat = str(ckpt)
+    assert "c_kernel" in flat and "offset" in flat
+    assert any(f.endswith(".png") for f in os.listdir(tmp_path / "cifar_log" / run))
 
 
 @pytest.mark.parametrize("flags,dis_count,gen_count", [
