@@ -113,6 +113,26 @@ Phases, each fatal on failure:
    - the conditional cifar CLI with ``--sample-same-class`` on synthetic
      data, host-fed over a labelled tfrecord, and from the card, in three
      subprocesses side by side.
+13. data parallelism (``mmdgan_torch/parallel``), each part in its own
+   processes (``chip_smoke.py --mesh-rank ...``), so no process group
+   outlives its part:
+   - 13a, a one-rank NCCL group: the full-width CIFAR-10 rep b64 bf16 main
+     path through ``DataParallel``, graphed K=16 with the collectives
+     captured: three profiled windows (1 + 2 kernel-means launches per
+     step, NCCL kernels per step and their device time, idle share),
+     steps/s beside the non-mesh window in turns, two mesh runs bitwise
+     equal under deterministic algorithms, a mesh window against the
+     non-mesh one from the same state within stated bounds;
+   - 13c, the same rank: the sharded device-data window (``with_mesh``)
+     over phase 12's labelled array, uniform, shuffled epochs,
+     same-class (every batch one class) and uniform with an imbalanced
+     [1, 5] schedule: steps/s;
+   - 13b, two gloo ranks sharing the card (eager windows): the narrow
+     rep and rmb_gp steps equal one device at the global batch within
+     JAX's mesh bounds, the two replicas bitwise identical;
+   - 13d, ``python -m torch.distributed.run --standalone --nproc-per-node
+     1 -m mmdgan_torch.experiments.cifar``, host-fed, a chunk with a
+     checkpoint, then a resumed one; beside 13b.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -737,11 +757,16 @@ def _profile(multi, ts, batches, what: str) -> dict:
         reach = max(reach, hi)
     out = {"busy": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / SCAN_K,
            "union": covered / 1e3 / SCAN_K, "span": (reach - spans[0][0]) / 1e3 / SCAN_K,
-           "wall": wall_ms / SCAN_K, "activities": len(kernels) / SCAN_K, "by_name": {}}
+           "wall": wall_ms / SCAN_K, "activities": len(kernels) / SCAN_K, "by_name": {},
+           "calls_by_name": {}}
     for e in kernels:
         out["by_name"][e.name] = out["by_name"].get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        out["calls_by_name"][e.name] = out["calls_by_name"].get(e.name, 0) + 1
     for kernel in KERNEL_EVENTS:
         out[kernel] = sum(kernel in e.name for e in kernels)
+    # the collectives the host issued (a replayed graph issues none)
+    out["nccl_ops"] = sum(e.device_type == torch.autograd.DeviceType.CPU
+                          and e.name.startswith("nccl:") for e in prof.events())
     return out
 
 
@@ -1904,6 +1929,404 @@ def check_conditional_cli() -> None:
                    "conditional, tfrecord on the card, class schedule, 64 steps")], tmp)
 
 
+# ----------------------------------------------------------------------
+# phase 13: data parallelism (the mesh), each part in its own processes
+# ----------------------------------------------------------------------
+MESH_WINDOWS = 4                    # windows of each bitwise mesh run
+MESH_STEPS = 3                      # 13b's narrow steps, two ranks against one
+MESH_DATA_CALLS = 4                 # 13c's timed windows per sampler
+MESH_CLI_STEPS = 64                 # 13d: one chunk, then one more resumed
+# 13a, a mesh window against the non-mesh one from the same trained state:
+# the first step's losses and gradient norms, then the end state's
+# parameters in relative L2 per network
+MESH_FIRST_STEP = dict(rtol=1e-3, atol=1e-5)
+MESH_PARAM_REL = 1e-2
+
+
+def _mesh_dp(backend: str, rank: int, world: int, store: str):
+    from mmdgan_torch.parallel.mesh import DataParallel, init_distributed
+
+    init_distributed(backend, f"file://{store}", rank, world)
+    return DataParallel(device="cuda:0")
+
+
+def _device_calls(prof: dict, pattern: str) -> tuple:
+    """(device activities per step whose name holds ``pattern``, their
+    device ms per step) of a profiled window."""
+    names = [n for n in prof["calls_by_name"] if pattern in n.lower()]
+    return (sum(prof["calls_by_name"][n] for n in names) / SCAN_K,
+            sum(prof["by_name"][n] for n in names) / SCAN_K)
+
+
+def _relative_gap(a: list, b: list) -> float:
+    num = sum(float(torch.sum(torch.square(x.float() - y.float()))) for x, y in zip(a, b))
+    den = sum(float(torch.sum(torch.square(y.float()))) for y in b)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def check_mesh_main_path(dp, card: str) -> list:
+    """Phase 13a, one NCCL rank: the full-width CIFAR-10 rep b64 bf16 main
+    path through ``DataParallel`` (``build_multi_step(..., dp=dp)``,
+    graphed K=16, the collectives captured):
+    - three profiled windows (the eager warm-up, the capture's replay, a
+      replay): 1 + 2 kernel-means launches per step in each, NCCL kernels
+      per step and their device time, busy time, idle share;
+    - steps/s of the non-mesh and the mesh window in turns (plain, mesh,
+      mesh, plain), 128 timed steps each;
+    - under deterministic algorithms, two mesh runs drawing their own z
+      end bitwise equal (MESH_WINDOWS windows), and one window of the mesh
+      against one of the non-mesh step from the same state (MESH_WINDOWS
+      non-mesh windows from seed 0), fed the same z: the first step's
+      losses and gradient norms within MESH_FIRST_STEP, the end state's
+      parameters within MESH_PARAM_REL in relative L2 per network. Only
+      the BN moments differ at one rank (cross-replica sums against
+      ``torch.mean``/``torch.var``, a rounding apart); bf16 activations
+      and the GAN's steps amplify that over a window (from init, the
+      per-step losses drifted 8.4% apart by step 7), so the window is
+      bounded loosely and its first step tightly.
+    Returns the profiler's kernel-means counts."""
+    dev = dp.device
+    meshed = lambda model, od, og, k, capture=True: build_multi_step(  # noqa: E731
+        model, od, og, k, capture=capture, dp=dp)
+    _, ts, multi, batches = main_path_setup(dev, "rep", make_multi=meshed)
+    dp.replicate(ts)
+    reset_counters()
+    profs = [_profiled_window(multi, ts, batches, f"mesh window {i}") for i in range(3)]
+    assert (multi.graphs.eager, multi.graphs.captures) == (1, 1), (
+        multi.graphs.eager, multi.graphs.captures)
+    assert_counted("mesh main path", 2)
+    counted = [sum(p[k] for p in profs) for k in KERNEL_EVENTS]
+    collectives = profs[0]["nccl_ops"] / SCAN_K
+    assert collectives > 0, "the eager mesh window issued no NCCL collective"
+    nccl, nccl_ms = _device_calls(profs[-1], "nccl")
+    copies, copies_ms = _device_calls(profs[-1], "memcpy")
+
+    _, ts_plain, plain, _ = main_path_setup(dev, "rep")
+    rates = {}
+    for name, drive, state in (("plain", plain, "p"), ("mesh", multi, "m"),
+                               ("mesh again", multi, "m"), ("plain again", plain, "p")):
+        if state == "p":
+            ts_plain, m, rates[name] = timed_windows(drive, ts_plain, batches)
+        else:
+            ts, m, rates[name] = timed_windows(drive, ts, batches)
+        assert all(torch.isfinite(v).all() for v in m.values()), name
+    plain_prof = _profiled_window(plain, ts_plain, batches, "non-mesh replay")
+    counted = [n + plain_prof[k] for n, k in zip(counted, KERNEL_EVENTS)]
+    plain_copies, plain_copies_ms = _device_calls(plain_prof, "memcpy")
+    mesh_sps = (rates["mesh"] + rates["mesh again"]) / 2
+    plain_sps = (rates["plain"] + rates["plain again"]) / 2
+    log(f"[mesh] 13a cifar10 rep b{BATCH} bf16 through DataParallel at 1 NCCL rank, graphed "
+        f"K={SCAN_K} (collectives captured): {rates['mesh']:.2f} / {rates['mesh again']:.2f} "
+        f"steps/s against the non-mesh window's {rates['plain']:.2f} / "
+        f"{rates['plain again']:.2f} in turns ({mesh_sps / plain_sps:.3f}x; "
+        f"{MEASURE_CALLS * SCAN_K} steps each); {collectives:g} NCCL collectives per step "
+        f"issued in the eager window; a replay: {nccl:g} NCCL kernels/step ({nccl_ms:.5f} "
+        f"ms/step), {copies:g} device copies/step ({copies_ms:.5f} ms) against the non-mesh "
+        f"replay's {plain_copies:g} ({plain_copies_ms:.5f} ms), device busy "
+        f"{profs[-1]['union']:.4f} ms/step against {plain_prof['union']:.4f}, idle "
+        f"{100 * (1 - profs[-1]['union'] / profs[-1]['span']):.1f}% of the span (non-mesh "
+        f"{100 * (1 - plain_prof['union'] / plain_prof['span']):.1f}%), "
+        f"{profs[-1]['activities']:.0f} activities/step against {plain_prof['activities']:.0f}, "
+        f"kernel means {profs[-1]['kernel_means_fwd'] // SCAN_K}+"
+        f"{profs[-1]['kernel_means_bwd'] // SCAN_K} per step in each of 3 profiled windows; "
+        f"card: {card}")
+    _log_profile(profs[-1], 1e3 / mesh_sps, "mesh cifar10 rep (a replay)")
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ends = []
+            for _ in range(2):
+                _, ts, multi, batches = main_path_setup(dev, "rep", make_multi=meshed)
+                dp.replicate(ts)
+                for _ in range(MESH_WINDOWS):
+                    ts, m = multi(ts, batches)
+                ends.append(_end_state(ts, m))
+            codes = {"x": torch.tensor(np.random.RandomState(9).randn(
+                SCAN_K, BATCH, 128).astype(np.float32), device=dev)}
+            model, trained, drive, batches = main_path_setup(dev, "rep")
+            for _ in range(MESH_WINDOWS):
+                trained, _ = drive(trained, batches)
+            opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+            pair = [build_multi_step(model, opt_d, opt_g, SCAN_K, dp=mesh)(
+                copy_state(trained), batches, code_batches=codes) for mesh in (dp, None)]
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    differ = _differ(*ends)
+    assert differ == 0, f"mesh: {differ} tensors differ between two mesh runs"
+    (ts_m, m_m), (ts_p, m_p) = pair
+    keys = ("loss_gen", "loss_dis", "grad_norm_dis", "grad_norm_gen")
+    rel = {k: (torch.abs(m_m[k] - m_p[k]) / torch.abs(m_p[k]).clamp(min=1e-6)).cpu().numpy()
+           for k in keys}
+    gaps = {net: _relative_gap(tree_leaves(ts_m.params[net]), tree_leaves(ts_p.params[net]))
+            for net in ("gen", "dis")}
+    log(f"[mesh] 13a under deterministic algorithms: two mesh runs of {MESH_WINDOWS * SCAN_K} "
+        f"steps end bitwise equal ({len(ends[0])} tensors); one window of the mesh against "
+        f"the non-mesh step from the same trained state (step {MESH_WINDOWS * SCAN_K}) fed the "
+        f"same z: first step " + ", ".join(f"{k} {rel[k][0]:.2e}" for k in keys)
+        + f" relative (bound rtol {MESH_FIRST_STEP['rtol']}, atol {MESH_FIRST_STEP['atol']}); "
+        f"over the window "
+        + ", ".join(f"{k} up to {rel[k].max():.2e}" for k in keys[:2])
+        + f"; end parameters {gaps['gen']:.2e} (G) / {gaps['dis']:.2e} (D) relative L2 "
+        f"(bound {MESH_PARAM_REL})")
+    for key in keys:
+        np.testing.assert_allclose(m_m[key][0].item(), m_p[key][0].item(), **MESH_FIRST_STEP,
+                                   err_msg=f"mesh vs non-mesh, first step's {key}")
+    assert max(gaps.values()) < MESH_PARAM_REL, gaps
+    return counted
+
+
+def check_mesh_device_data(dp, card: str) -> None:
+    """Phase 13c, one NCCL rank: ``build_device_data_step(...).with_mesh``
+    over phase 12's seeded 50,000-row labelled array on the card, the
+    full-width CIFAR-10 model (conditional for same-class), rep b64 bf16,
+    graphed K=16: every same-class batch one class (SAMPLER_DRAWS read on
+    the card), the uniform mesh sampler at one rank the single-device one
+    bitwise; steps/s of uniform, shuffled epochs, same-class uniform and
+    uniform with ``imbalanced=[1, 5]`` (whose Adam counts advance by 16
+    (D) and by the steps divisible by 5 (G) per window)."""
+    dev = dp.device
+    x, y, data_x, data_y = labelled_dataset(dev)
+    table, counts = same_class_tables(y, NUM_CLASS)
+    cond = SNGan(cifar_architecture(conditional=True), num_class=NUM_CLASS, loss_type="rep")
+    plain = SNGan(cifar_architecture(), loss_type="rep")
+    opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+    templates = {m: init_train_state(m, 0, opt_d, opt_g) for m in (cond, plain)}
+
+    def window(model, sampling="uniform", same=False, imbalanced=None):
+        fn = build_device_data_step(model, opt_d, opt_g, SCAN_K, BATCH, same_class=same,
+                                    class_table=table if same else None,
+                                    class_counts=counts if same else None, sampling=sampling)
+        return fn, fn.with_mesh(dp, imbalanced=imbalanced)
+
+    single, meshed = window(cond, same=True)
+    sample = meshed.sampler(data_x, data_y)
+    rng = torch.Generator(dev).manual_seed(2)
+    ys = torch.stack([sample(rng, torch.tensor(t, device=dev))["y"]
+                      for t in range(SAMPLER_DRAWS)])
+    assert bool((ys == ys[:, :1]).all()), "a sharded same-class batch mixes classes"
+    single, meshed = window(plain)
+    draws = [s(data_x)(torch.Generator(dev).manual_seed(3), torch.tensor(0, device=dev))["x"]
+             for s in (single.sampler, meshed.sampler)]
+    assert torch.equal(draws[0], draws[1]), "the one-rank mesh sampler is not the device one"
+
+    rates = {}
+    for name, model, sampling, same, imbalanced in (
+            ("uniform", plain, "uniform", False, None),
+            ("shuffled epochs", plain, "shuffled_epochs", False, None),
+            ("same-class uniform", cond, "uniform", True, None),
+            ("uniform, imbalanced [1, 5]", plain, "uniform", False, IMBALANCED)):
+        _, fn = window(model, sampling, same, imbalanced)
+        ts = dp.replicate(copy_state(templates[model]))
+        rng = torch.Generator(dev).manual_seed(1)
+        labels = data_y if same else None
+        if imbalanced is None:
+            drive = lambda ts, _, fn=fn, rng=rng, labels=labels: fn(ts, data_x, labels, rng)  # noqa: E731
+        else:
+            avg = torch.zeros((), device=dev)
+            drive = lambda ts, _, fn=fn, rng=rng, avg=avg: fn(ts, data_x, None, rng, avg)  # noqa: E731
+        counts0 = (int(ts.opt_state_dis.count), int(ts.opt_state_gen.count))
+        ts, m, rates[name] = timed_windows(drive, ts, None, measure=MESH_DATA_CALLS)
+        assert all(torch.isfinite(v).all() for v in m.values()), name
+        if imbalanced is not None:
+            steps = (WARMUP_CALLS + MESH_DATA_CALLS) * SCAN_K
+            got = (int(ts.opt_state_dis.count) - counts0[0],
+                   int(ts.opt_state_gen.count) - counts0[1])
+            assert got == (steps, len(range(0, steps, IMBALANCED[1]))), got
+        assert fn.graphs.captures == 1, (name, fn.graphs.captures)
+    log(f"[mesh] 13c sharded device data (with_mesh) at 1 NCCL rank over the seeded "
+        f"{AGENT_ROWS}-row labelled array, graphed K={SCAN_K}, steady state "
+        f"({MESH_DATA_CALLS * SCAN_K} steps after {WARMUP_CALLS * SCAN_K}): "
+        + ", ".join(f"{k} {v:.2f} steps/s" for k, v in rates.items())
+        + f"; {SAMPLER_DRAWS} same-class batches read on the card, each one class; the "
+        f"one-rank uniform sampler equals the device one bitwise; card: {card}")
+
+
+def mesh_gloo_rank(rank: int, world: int, store: str, out: str, card: str) -> None:
+    """Phase 13b, one of two gloo ranks sharing the card: the narrow f32
+    model (BN generator) through a ``DataParallel`` step for rep and for
+    rmb_gp (the witness penalty's double backward through the
+    collectives), MESH_STEPS SGD steps at a global batch of BATCH on
+    RandomState(7)'s batches, z and penalty weights, TF32 off; rank 0 runs
+    the single-device step at the global batch beside it and holds the
+    mesh to it within JAX's mesh bounds (losses rtol 2e-4 / atol 1e-5,
+    parameters rtol 2e-3 / atol 1e-6). Each rank saves its end state for
+    the bitwise comparison; a gloo mesh's window runs eagerly.
+
+    cuDNN is off in this process: its f32 algorithms differ between a
+    batch of 32 rows and one of 64, and in rmb_gp's double backward that
+    moved parameters near zero by more than JAX's per-element bounds admit
+    (2.6e-6 on a weight of 4.4e-4, NVIDIA H100 80GB HBM3 at 700 W);
+    PyTorch's GEMM-based convolutions leave the comparison to the mesh's
+    own summation order."""
+    torch.backends.cudnn.enabled = False
+    dp = _mesh_dp("gloo", rank, world, store)
+    rng = np.random.RandomState(7)
+    x = rng.randn(MESH_STEPS, BATCH, 32, 32, 3).clip(-1, 1).astype(np.float32)
+    z = rng.randn(MESH_STEPS, BATCH, 128).astype(np.float32)
+    uni = rng.uniform(size=(MESH_STEPS, BATCH, 1, 1, 1)).astype(np.float32)
+    saved = {}
+
+    def run(loss: str, mesh) -> tuple:
+        model = SNGan(narrow_architecture(), loss_type=loss, compute_dtype=torch.float32,
+                      device=dp.device)
+        opt_d, opt_g = multi_opt_config([1e-2, 1e-2], optimizer="sgd")
+        ts = init_train_state(model, 0, opt_d, opt_g, device=dp.device)
+        step = build_train_step(model, opt_d, opt_g, device=dp.device, dp=mesh)
+        losses = []
+        for k in range(MESH_STEPS):
+            rows = x[k] if mesh is None else dp.local_rows(torch.tensor(x[k]))
+            ts, m = step(ts, {"x": rows}, code_batch={"x": z[k]},
+                         uni=uni[k] if loss == "rmb_gp" else None)
+            losses.append([m["loss_gen"].item(), m["loss_dis"].item()])
+        return ts, np.asarray(losses), (build_multi_step(model, opt_d, opt_g, 2, dp=mesh)
+                                        if mesh is not None else None)
+
+    worst = {}
+    for loss in ("rep", "rmb_gp"):
+        ts, losses, multi = tf32_off(lambda: run(loss, dp))
+        saved[loss] = [t.detach().cpu() for t in ts.tensors()] + [ts.rng.get_state()]
+        ts, _ = multi(ts, {"x": torch.tensor(x[:2, :BATCH // world], device=dp.device)})
+        assert (multi.graphs.eager, multi.graphs.captures) == (0, 0), "a gloo window captured"
+        if rank == 0:
+            ts1, losses1, _ = tf32_off(lambda: run(loss, None))
+            np.testing.assert_allclose(losses, losses1, rtol=2e-4, atol=1e-5, err_msg=loss)
+            got = saved[loss]
+            want = [t.detach().cpu() for t in ts1.tensors()]
+            n_state = len(tree_leaves(ts1.params)) + len(tree_leaves(ts1.net_state))
+            for a, b in zip(got[:n_state], want[:n_state]):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3, atol=1e-6,
+                                           err_msg=loss)
+            worst[loss] = float(np.max(np.abs(losses - losses1) / np.maximum(np.abs(losses1),
+                                                                              1e-6)))
+    torch.save(saved, os.path.join(out, f"gloo{rank}.pt"))
+    if rank == 0:
+        log(f"[mesh] 13b two gloo ranks sharing the card, narrow f32 (BN generator), "
+            f"{MESH_STEPS} SGD steps at a global batch of {BATCH}: rep and rmb_gp equal the "
+            f"single-device step within JAX's mesh bounds (largest relative loss gap "
+            f"{worst['rep']:.2e} rep, {worst['rmb_gp']:.2e} rmb_gp); the gloo mesh's window "
+            f"ran eagerly; card: {card}")
+    dp.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def mesh_nccl_rank(store: str, out: str, card: str) -> None:
+    """Phases 13a and 13c in one process holding a one-rank NCCL group;
+    writes the kernel-means counts of 13a."""
+    dp = _mesh_dp("nccl", 0, 1, store)
+    counted = check_mesh_main_path(dp, card)
+    check_mesh_device_data(dp, card)
+    with open(os.path.join(out, "nccl.json"), "w") as f:
+        json.dump(counted, f)
+    torch.distributed.destroy_process_group()
+
+
+def _mesh_process(args: list, log_path: str) -> tuple:
+    log_file = open(log_path, "w+")
+    return log_file, subprocess.Popen(args, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                      stdout=log_file, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait_all(procs: list, timeout: int) -> list:
+    """Wait for every (what, log file, process); relay each log; every
+    process ends before this returns. Returns the logs."""
+    logs = []
+    try:
+        for what, log_file, proc in procs:
+            rc = proc.wait(timeout=timeout)
+            log_file.seek(0)
+            text = log_file.read()
+            logs.append(text)
+            for line in text.splitlines():
+                if line.startswith("[mesh]") or line.startswith("[profile]"):
+                    log(line)
+            assert rc == 0, f"{what} exited {rc}:\n{text[-4000:]}"
+    finally:
+        for _, log_file, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+    return logs
+
+
+def mesh_cli_commands(tmp: str) -> list:
+    """Phase 13d's two commands: ``python -m torch.distributed.run
+    --standalone --nproc-per-node 1 -m mmdgan_torch.experiments.cifar``,
+    host-fed (synthetic), one chunk of MESH_CLI_STEPS steps with a
+    checkpoint, then the same command again, which restores it on its rank
+    and runs MESH_CLI_STEPS more."""
+    common = ["--synthetic-data", "--skip-sampling", "--skip-metrics", "--chunks", "1",
+              "--steps-per-chunk", str(MESH_CLI_STEPS), "--query-step", "32",
+              "--out-dir", os.path.join(tmp, "cli")]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "mmdgan_torch.experiments.cifar"]
+    return [cmd + common + ["--fresh"], cmd + common]
+
+
+def run_mesh(card: str) -> list:
+    """Phase 13 (data parallelism): 13a and 13c in one process with a
+    one-rank NCCL group, then 13b's two gloo ranks and 13d's torchrun
+    CLI side by side; every process ends before this returns. Returns
+    13a's kernel-means counts."""
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        _wait_all([("13a/13c NCCL rank", *_mesh_process(
+            [sys.executable, me, "--mesh-rank", "nccl", "0", "1", os.path.join(tmp, "nccl"),
+             tmp, card], os.path.join(tmp, "nccl.log")))], timeout=400)
+        with open(os.path.join(tmp, "nccl.json")) as f:
+            counted = json.load(f)
+        first, again = mesh_cli_commands(tmp)
+        procs = [(f"13b gloo rank {r}", *_mesh_process(
+            [sys.executable, me, "--mesh-rank", "gloo", str(r), "2", os.path.join(tmp, "gloo"),
+             tmp, card], os.path.join(tmp, f"gloo{r}.log"))) for r in range(2)]
+        procs.append(("13d torchrun cifar CLI", *_mesh_process(
+            first, os.path.join(tmp, "cli0.log"))))
+        logs = _wait_all(procs, timeout=400)
+        cli = [logs[-1]] + _wait_all([("13d torchrun cifar CLI, resumed", *_mesh_process(
+            again, os.path.join(tmp, "cli1.log")))], timeout=400)
+        ranks = [torch.load(os.path.join(tmp, f"gloo{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        for loss in ranks[0]:
+            differ = [i for i, (a, b) in enumerate(zip(ranks[0][loss], ranks[1][loss]))
+                      if not torch.equal(a, b)]
+            assert not differ, f"13b {loss}: tensors {differ} of the state differ between ranks"
+        for i, text in enumerate(cli):
+            lines = [ln for ln in text.splitlines() if "train_steps_per_sec" in ln]
+            assert lines and "Devices: 1 (cuda:0" in text and "nccl mesh" in text, text[-3000:]
+            if i:
+                assert f"restored checkpoint at step {MESH_CLI_STEPS}" in text, text[-3000:]
+            log(f"[mesh] 13d torchrun cifar CLI ({'resumed' if i else 'fresh'}, "
+                f"{MESH_CLI_STEPS} host-fed steps through DataParallel): {lines[-1]}")
+        ckpts = sorted(os.listdir(os.path.join(tmp, "cli", "cifar_ckpt",
+                                               "sngan_rep_5e-04_2e-04_k1.68_0.0_-1.0")))
+        assert set(ckpts) == {f"ckpt-{MESH_CLI_STEPS}.pt", f"ckpt-{2 * MESH_CLI_STEPS}.pt"}, ckpts
+        log(f"[mesh] 13b the two gloo ranks' end states are bitwise identical ("
+            f"{len(ranks[0]['rep'])} tensors each for rep and rmb_gp, the generator included); "
+            f"13d wrote ckpt-{MESH_CLI_STEPS} and, resumed, ckpt-{2 * MESH_CLI_STEPS}; "
+            f"card: {card}")
+    return counted
+
+
+def mesh_rank_main(argv: list) -> int:
+    """``chip_smoke.py --mesh-rank {nccl,gloo} RANK WORLD STORE OUT CARD``:
+    one rank of phase 13 (run by ``run_mesh``)."""
+    kind, rank, world, store, out, card = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.build(cuda_mmd.SOURCE)
+    if kind == "nccl":
+        mesh_nccl_rank(store, out, card)
+    else:
+        mesh_gloo_rank(int(rank), int(world), store, out, card)
+    return 0
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace, chosen before
     # its first call (phase 6)
@@ -1912,6 +2335,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank_main(sys.argv[2:])
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 Gram products, as the reference
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1963,10 +2388,11 @@ def main() -> int:
     phase("12 same-class data", lambda: check_same_class_data(dev, card))
     phase("12 card vs CPU", lambda: check_catalogue_on_card(dev))
     phase("12 cli", check_conditional_cli)
+    mesh_launches = phase("13 mesh", lambda: run_mesh(card))
     for i, kernel in enumerate(kernels):
         kernel["launches"] = (sum(launches[i] for launches, _ in runs.values()) + loss_launches[i]
                               + sum(f[i] for f in family_launches) + hd_launches[i]
-                              + eval_launches[i] + cond_launches[i])
+                              + eval_launches[i] + cond_launches[i] + mesh_launches[i])
 
     log(f"[timing] seconds by phase: {json.dumps(seconds)}")
     log(json.dumps({"kernels": kernels}))

@@ -9,8 +9,9 @@ copy of ``mmdgan_tpu/data/pipeline.py:44-333`` (``input_func.py:721-965``):
 A background thread decodes and batches ahead (``prefetch.background``).
 ``shape2image(..., resize=(h, w))`` resizes on the host with the
 align-corners bilinear matrices of ``models/scaling.py`` (float batches
-only, as in JAX). Not ported: the C++ record reader (``native.py``,
-ROADMAP A10) and per-host sharding (the mesh, ROADMAP A15).
+only, as in JAX). ``shard`` restricts a pipeline to one rank's share of
+the records (the mesh's per-process feeding). Not ported: the C++ record
+reader (``native.py``, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -74,9 +75,36 @@ class ReadTFRecords:
         # let the device do x/127.5-1 (the train step decodes uint8
         # batches, the same float32 op): 4x fewer bytes to the device
         self.device_decode = device_decode
+        # one rank's share (shard): (num_shards, shard_index) or None
+        self._shard: Optional[tuple] = None
         # image shaping (shape2image, input_func.py:826-868)
         self._image_shape: Optional[tuple] = None
         self.batch_shape = [batch_size, num_features]
+
+    def shard(self, num_shards: Optional[int] = None,
+              shard_index: Optional[int] = None) -> "ReadTFRecords":
+        """Restrict this pipeline to one rank's shard of the dataset
+        (``mmdgan_tpu/data/pipeline.py:89-113``). Defaults to the process
+        group's world size and rank (1 and 0 outside a group). With at
+        least ``num_shards`` files the split is per file (disjoint files
+        per rank); otherwise records are dealt round-robin (every rank
+        reads all bytes and keeps 1/num_shards of the records). Pair with
+        ``batch_size = DataParallel.local_batch_size(global_batch)``."""
+        if num_shards is None or shard_index is None:
+            import torch.distributed as dist
+
+            joined = dist.is_available() and dist.is_initialized()
+            num_shards = dist.get_world_size() if joined else 1
+            shard_index = dist.get_rank() if joined else 0
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard {shard_index} of {num_shards}")
+        if num_shards == 1:
+            return self
+        if len(self.filenames) >= num_shards:
+            self.filenames = self.filenames[shard_index::num_shards]
+        else:
+            self._shard = (num_shards, shard_index)
+        return self
 
     def shape2image(self, channels: int, height: int, width: int, resize=None,
                     transpose: bool = False):
@@ -100,9 +128,17 @@ class ReadTFRecords:
 
     # ------------------------------------------------------------------
     def _iter_raw(self) -> Iterator[Dict[str, np.ndarray]]:
-        """One pass over all files, yielding decoded examples."""
+        """One pass over all files (of this rank's shard), yielding decoded
+        examples."""
+        i = 0
         for path in self.filenames:
             for record in TFRecordReader(path):
+                if self._shard is not None:
+                    n, k = self._shard
+                    keep = i % n == k
+                    i += 1
+                    if not keep:
+                        continue
                 yield self._decode(record)
 
     def _decode(self, record) -> Dict[str, np.ndarray]:

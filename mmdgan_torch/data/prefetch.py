@@ -18,12 +18,16 @@ from typing import Dict, Iterable, Iterator
 import torch
 
 _STOP = object()
+_JOIN_SECONDS = 10.0   # a producer checks for the close every 0.5 s between items
 
 
 def background(items: Iterable, size: int) -> Iterator:
     """Iterate ``items`` in a daemon thread, up to ``size`` items ahead.
     An error in the thread is raised in the consumer, never dropped: a
-    producer that died silently would look like a clean end of data."""
+    producer that died silently would look like a clean end of data.
+    Closing the iterator stops the thread and waits for it: a thread left
+    inside a CUDA call (pinning a batch) while the process exits aborts
+    it."""
     q: "queue.Queue" = queue.Queue(maxsize=size)
     closed = threading.Event()
 
@@ -46,7 +50,8 @@ def background(items: Iterable, size: int) -> Iterator:
             err = e
         put((_STOP, err))
 
-    threading.Thread(target=producer, daemon=True).start()
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -57,6 +62,8 @@ def background(items: Iterable, size: int) -> Iterator:
             yield item
     finally:
         closed.set()   # release a producer blocked on a full queue
+        if thread is not threading.current_thread():
+            thread.join(timeout=_JOIN_SECONDS)
 
 
 def _tensors(batch: Dict, fn) -> Dict:

@@ -23,6 +23,19 @@ yet raises and names its ROADMAP item: ``--use-pallas`` (the TPU kernel;
 the port always runs its own CUDA kernel-means kernel, B1) and
 ``--compilation-cache`` (A16). ``--loss`` takes every name of the loss
 dispatcher.
+
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) the host-fed path
+trains data-parallel, as the JAX runner's ``DataParallel()`` does
+(``experiments/runner.py:238,295``): one rank per process on
+``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``), each reading its
+shard of the records (``ReadTFRecords.shard``) at
+``local_batch_size(--batch-size)`` rows, the global batch keeping the
+one-device semantics; rank 0 writes the checkpoints, the summaries, the
+sprites and the scores. The device-resident path stays on one device per
+process, as JAX's does (``runner.py:272``)::
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m mmdgan_torch.experiments.cifar --batch-size 64 ...
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import time
 from typing import Sequence
 
@@ -144,6 +158,7 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
     from mmdgan_torch.data.pipeline import ReadTFRecords
     from mmdgan_torch.data.synthetic import synthetic_image_batches
     from mmdgan_torch.models.sngan import SNGan
+    from mmdgan_torch.parallel import DataParallel
     from mmdgan_torch.train.optim import multi_opt_config
     from mmdgan_torch.train.step import build_grad_accum_step, build_train_step, init_train_state
     from mmdgan_torch.train.trainer import Agent
@@ -157,7 +172,14 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
     if args.inception_pb:
         cfg = cfg.with_updates(inception_pb=args.inception_pb)
     set_config(cfg)
-    device = resolve_device(args.device)
+    use_device_data = args.device_dataset and not args.synthetic_data
+    # launched by torchrun: the host-fed path is data-parallel
+    dp = DataParallel(device=args.device) if "WORLD_SIZE" in os.environ else None
+    device = resolve_device(args.device) if dp is None else dp.device
+    main = dp is None or dp.is_main
+    feed_dp = None if use_device_data else dp
+    local_batch = args.batch_size if feed_dp is None else feed_dp.local_batch_size(
+        args.batch_size)
 
     c, h, w = input_chw
     loss_type = args.loss
@@ -193,37 +215,48 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
         file_repeat = 1
         shuffle_file = True
 
-    def make_data_iter():
+    def make_data_iter(batch_size: int = args.batch_size, rank: int = 0, shards: int = 1):
         if args.synthetic_data:
-            return synthetic_image_batches(args.batch_size, h, w, c, num_class=args.num_class,
-                                           seed=args.seed)
-        return ReadTFRecords(filename, num_labels=num_labels, batch_size=args.batch_size,
+            return synthetic_image_batches(batch_size, h, w, c, num_class=args.num_class,
+                                           seed=args.seed + rank)
+        return ReadTFRecords(filename, num_labels=num_labels, batch_size=batch_size,
                              file_repeat=file_repeat, shuffle_file=shuffle_file,
                              device_decode=not args.host_decode,
-                             ).shape2image(c, h, w).next_batch(args.sample_same_class)
+                             ).shard(shards, rank).shape2image(c, h, w).next_batch(
+                                 args.sample_same_class)
+
+    def train_iter():
+        """The rank's batches: its shard of the records at its rows."""
+        if feed_dp is None:
+            return make_data_iter()
+        return make_data_iter(local_batch, feed_dp.rank, feed_dp.size)
 
     opt_d, opt_g = multi_opt_config(lr_list, end_lr=args.end_lr, optimizer=args.optimizer,
                                     target_step=args.chunks * args.steps_per_chunk,
                                     bf16_moments=args.bf16_moments)
     ts = init_train_state(model, args.seed, opt_d, opt_g, device=device)
-    use_device_data = args.device_dataset and not args.synthetic_data
     # the device-resident path builds its own step in train_device_data
     step_fn = None
     if not use_device_data:
-        step_fn = (build_grad_accum_step(model, opt_d, opt_g, args.micro_batches, device=device)
+        step_fn = (build_grad_accum_step(model, opt_d, opt_g, args.micro_batches, device=device,
+                                         dp=feed_dp)
                    if args.micro_batches > 1 else
-                   build_train_step(model, opt_d, opt_g, device=device))
-    print(f"Device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}); "
-          f"Num instance: {num_instance}; Num class: {args.num_class}; Batch: {args.batch_size}; "
-          f"File_repeat: {file_repeat}",
-          flush=True)
+                   build_train_step(model, opt_d, opt_g, device=device, dp=feed_dp))
+    name_of = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    if main:
+        print(f"Devices: {1 if feed_dp is None else feed_dp.num_devices} ({device} {name_of}"
+              f"{'' if feed_dp is None else f', {feed_dp.backend} mesh'}); "
+              f"Num instance: {num_instance}; Num class: {args.num_class}; "
+              f"Batch: {args.batch_size}; File_repeat: {file_repeat}", flush=True)
 
     device_data = None
     if use_device_data:
         device_data = ReadTFRecords(filename, num_labels=num_labels, batch_size=args.batch_size,
                                     device_decode=True).shape2image(c, h, w).load_all()
-        print(f"Device-resident dataset: x{device_data['x'].shape} {device_data['x'].dtype} "
-              f"({device_data['x'].nbytes / 2**20:.1f} MiB to the device)", flush=True)
+        if main:
+            print(f"Device-resident dataset: x{device_data['x'].shape} "
+                  f"{device_data['x'].dtype} "
+                  f"({device_data['x'].nbytes / 2**20:.1f} MiB to the device)", flush=True)
 
     code_x = np.random.RandomState(args.seed).randn(400, model.code_size).astype(np.float32)
     # assumed TF1-GPU reference throughput at this resolution (bench.py
@@ -248,14 +281,16 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
                 # the epoch permutations must not change at chunk boundaries
                 sampling_seed=args.seed, micro_batches=args.micro_batches)
         else:
-            ts = agent.train(step_fn, ts, make_data_iter(), max_step=max_step,
-                             step_per_epoch=step_per_epoch, summary_image_fn=images,
+            ts = agent.train(step_fn, ts, train_iter(), max_step=max_step,
+                             step_per_epoch=step_per_epoch, dp=feed_dp, summary_image_fn=images,
                              steps_per_call=args.steps_per_call)
         if debug_mode is None:
             return ts
         gstep = int(ts.step)
         train_seconds += time.time() - t_train
         train_steps += gstep - step_before
+        if not main:
+            continue
         # per-layer spectral norms (reference kernel_norm summaries)
         norms = model.Dis.kernel_norms(ts.params["dis"], ts.net_state["dis"])
         agent.writer.scalars(gstep, {f"sigma/{k}": v for k, v in norms.items()
@@ -281,6 +316,8 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
                 "eval/fid_xg": scores[3],
             })
             agent.writer.scalars(gstep, {f"time/eval_{k}": v for k, v in seconds.items()})
+    if not main:
+        return ts
     agent.writer.flush()
     if train_steps > 0 and train_seconds > 0:
         sps = train_steps / train_seconds

@@ -329,8 +329,8 @@ class Layer:
         return params, state
 
     def apply(self, params: Dict, state: Dict, x: torch.Tensor, train: bool = True,
-              label: Optional[torch.Tensor] = None):
-        """Returns (out, new_state)."""
+              label: Optional[torch.Tensor] = None, dp=None):
+        """Returns (out, new_state); ``dp`` as ``Routine.apply``."""
         assert tuple(x.shape[1:]) == self.input_shape, (
             f"{self.layer_scope}: input shape {tuple(x.shape[1:])} does not match "
             f"declared {self.input_shape}")
@@ -343,7 +343,7 @@ class Layer:
             if isinstance(op, ImageScaling):
                 return op.apply(v)
             y, s = op.apply(params.get(name, {}), state.get(name, {}), v, train=train,
-                            label=label)
+                            label=label, dp=dp)
             if s:
                 new_state[name] = s
             return y

@@ -148,10 +148,11 @@ class Routine:
         return params, state
 
     def apply(self, params: Dict, state: Dict, x: torch.Tensor, train: bool = True,
-              label: Optional[torch.Tensor] = None):
+              label: Optional[torch.Tensor] = None, dp=None):
         """Returns (output, new_state): the output layer's tensor, or {index:
         tensor} for several. Outputs are float32 whatever the compute
-        dtype: scores feed the MMD Gram matrices, images the user."""
+        dtype: scores feed the MMD Gram matrices, images the user. ``dp``
+        (a ``DataParallel``) makes train-mode BN statistics global."""
         if not self.output_layer_indices:
             raise RuntimeError("Output layer has not been defined.")
         new_state: Dict[str, Dict] = {}
@@ -161,7 +162,7 @@ class Routine:
             layer = self.net.layers[index]
             scope = layer.layer_scope
             y, s = layer.apply(params.get(scope, {}), state.get(scope, {}), inp, train=train,
-                               label=label)
+                               label=label, dp=dp)
             if s:
                 new_state[scope] = s
             return y

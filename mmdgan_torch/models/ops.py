@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from mmdgan_torch.models.initializers import bias_initializer, weight_initializer
 from mmdgan_torch.models.scaling import avg_pool, max_pool
 from mmdgan_torch.ops.conv import Geometry
+from mmdgan_torch.parallel.collectives import batch_moments
 from mmdgan_torch.ops.spectral_norm import (
     EPSI,
     SnDef,
@@ -258,8 +259,10 @@ class ParametricOp:
         return self.geometry.forward(x.to(cd), w.to(cd))
 
     def apply(self, params: Dict, state: Dict, x: torch.Tensor, train: bool = True,
-              label: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
-        """Returns (output, new_state); x is ``[N, *input_shape]``."""
+              label: Optional[torch.Tensor] = None, dp=None) -> Tuple[torch.Tensor, Dict]:
+        """Returns (output, new_state); x is ``[N, *input_shape]``. With a
+        mesh (``dp``), train-mode BN takes its statistics over the global
+        batch."""
         d = self.design
         op = d["op"]
         assert tuple(x.shape[1:]) == self.input_shape, (
@@ -309,7 +312,7 @@ class ParametricOp:
             b = params["bias"]
             y = x + (b if x.dim() == 2 else b.view(-1, 1, 1))
         elif op in ("bn", "cbn"):
-            y, new_state = self._batch_norm(params, state, new_state, x, train, label)
+            y, new_state = self._batch_norm(params, state, new_state, x, train, label, dp)
         elif op == "lrn":
             # normalize by the RMS over channels (layer_func.py:462-477)
             y = x / torch.sqrt(torch.mean(torch.square(x), dim=1, keepdim=True) + EPSI)
@@ -332,16 +335,22 @@ class ParametricOp:
             y = y * multiplier[label]
         return y.to(cd), new_state
 
-    def _batch_norm(self, params, state, new_state, x, train, label):
+    def _batch_norm(self, params, state, new_state, x, train, label, dp=None):
         """BN by hand: biased batch variance, like tf.layers (and unlike
         ``nn.BatchNorm2d``, which stores the unbiased one); ``cbn`` scales
-        and offsets per class (layer_func.py:967-971)."""
+        and offsets per class (layer_func.py:967-971). With a mesh the
+        train-mode statistics are the global batch's (cross-replica sums,
+        ``mmdgan_tpu/models/ops.py:536-552`` under XLA's partitioner), so
+        the moving statistics are the same on every rank."""
         x = x.float()
         dims = (0,) if x.dim() == 2 else (0, 2, 3)
         view = (1, -1) if x.dim() == 2 else (1, -1, 1, 1)
-        if train:
+        if train and dp is not None:
+            mean, var = batch_moments(x, dims, dp)
+        elif train:
             mean = torch.mean(x, dim=dims)
             var = torch.var(x, dim=dims, correction=0)
+        if train:
             with torch.no_grad():
                 new_state["moving_mean"] = (
                     BN_MOMENTUM * state["moving_mean"] + (1.0 - BN_MOMENTUM) * mean)

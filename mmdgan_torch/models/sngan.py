@@ -14,6 +14,15 @@ penalties score their interpolates against the real batch's labels
 (``mmdgan_tpu/models/sngan.py:262-330,412``). ``sample_same_class`` makes
 the code labels those of the real batch (``:375-378``).
 
+With a mesh (``dp``, a ``parallel.DataParallel``) the two stages keep the
+global-batch semantics of one device at the global batch: z, the code
+labels and the penalty's interpolation weights are drawn at the global
+batch from the replicated generator and each rank takes its rows; the
+scores are gathered before the loss (whose draws are then the same on
+every rank) and the witness; BN statistics, the penalty means, the
+Jacobian scale's mean and the aux means are global
+(``parallel/collectives.py``).
+
 The penalties (WGAN-GP, the MMD witness penalty, the scaled-MMD Jacobian
 scale) score their inputs with ``train=False`` and take their gradient
 with ``create_graph=True``: the step differentiates through it again
@@ -32,6 +41,7 @@ from mmdgan_torch.models.network import Net, Routine
 from mmdgan_torch.ops.distance import get_squared_dist
 from mmdgan_torch.ops.kernels import witness_g, witness_mix_g, witness_mix_t
 from mmdgan_torch.ops.losses import GANLoss, LossState
+from mmdgan_torch.parallel.collectives import all_gather, batch_mean, gathered_mean
 
 GP_LOSSES = ("rep_gp", "rmb_gp", "fixed_g_gp", "fixed_t_gp")
 DS_LOSSES = ("rep_ds", "rmb_ds")
@@ -58,11 +68,12 @@ def _input_grad(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return g.reshape(g.shape[0], -1)
 
 
-def _norm_penalty(g: torch.Tensor) -> torch.Tensor:
+def _norm_penalty(g: torch.Tensor, dp=None) -> torch.Tensor:
     """E (||g|| - 1)^2 with ||g|| = sqrt(sum g^2 + 1e-12): the eps keeps
-    the second-order step finite where a gradient is 0."""
+    the second-order step finite where a gradient is 0. The mean is over
+    the global batch under a mesh."""
     norm = torch.sqrt(torch.sum(torch.square(g), dim=1) + 1e-12)
-    return torch.mean(torch.square(norm - 1.0))
+    return batch_mean(torch.square(norm - 1.0), dp)
 
 
 def _differentiable(x: torch.Tensor) -> torch.Tensor:
@@ -80,6 +91,15 @@ def jacobian_squared_frobenius_norm(fwd: Callable, x: torch.Tensor) -> torch.Ten
         (g,) = torch.autograd.grad(y[:, j].sum(), x, create_graph=True, retain_graph=True)
         total = total + torch.sum(torch.square(g.reshape(g.shape[0], -1)), dim=1)
     return total
+
+
+def gather_scores(scores: torch.Tensor, dp) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(s_x, s_gen) of the global batch from each rank's scores of
+    concat(real, fake): one differentiable gather (``all_gather``), then
+    the real and the generated rows of every rank, in rank order."""
+    n, d = scores.shape[0] // 2, scores.shape[1]
+    both = all_gather(scores, dp).view(dp.size, 2, n, d)
+    return both[:, 0].reshape(dp.size * n, d), both[:, 1].reshape(dp.size * n, d)
 
 
 class SNGan:
@@ -170,18 +190,20 @@ class SNGan:
         return y[:, None] if y.dim() == 1 else y
 
     def sample_codes(self, generator: Optional[torch.Generator], batch_size: int,
-                     code_x=None, code_y=None) -> Dict[str, Optional[torch.Tensor]]:
+                     code_x=None, code_y=None,
+                     draw_labels: bool = True) -> Dict[str, Optional[torch.Tensor]]:
         """z ~ N(0, 1) and, for a conditional model, labels ~ U{0..C-1}
         (my_sngan.py:111-149), drawn from ``generator`` in that order, or
         as given: ``code_y`` an int, [N] or [N, 1]. Labels come out [N, 1]
-        int64 on the model's device."""
+        int64 on the model's device; None when not given and not
+        ``draw_labels``."""
         if code_x is None:
             code_x = torch.randn(batch_size, self.code_size, generator=generator,
                                  device=self.device)
         else:
             code_x = torch.as_tensor(code_x, dtype=torch.float32, device=self.device)
             assert code_x.shape[0] == batch_size
-        if self.num_class < 2:
+        if self.num_class < 2 or (code_y is None and not draw_labels):
             return {"x": code_x, "y": None}
         if code_y is None:
             dev = self.device if generator is None else generator.device
@@ -244,20 +266,23 @@ class SNGan:
     def gradient_penalty(self, params_d: Dict, state: Dict, x: torch.Tensor,
                          x_gen: torch.Tensor, generator: Optional[torch.Generator] = None,
                          uni: Optional[torch.Tensor] = None,
-                         labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         labels: Optional[torch.Tensor] = None, dp=None) -> torch.Tensor:
         """WGAN-GP: E (||d D(x_hat) / d x_hat|| - 1)^2 over interpolates
         with weights ``uni`` [N, 1, 1, 1] (drawn from ``generator`` when
-        not given), scored against ``labels`` (the real batch's)."""
+        not given), scored against ``labels`` (the real batch's); E over
+        the global batch under a mesh (``dp``)."""
         x_hat = self._interpolates(x, x_gen, generator, uni)
-        return _norm_penalty(_input_grad(self._dis_fwd(params_d, state, x_hat, labels), x_hat))
+        return _norm_penalty(_input_grad(self._dis_fwd(params_d, state, x_hat, labels), x_hat),
+                             dp)
 
     def mmd_gradient_penalty(self, params_d: Dict, state: Dict, x: torch.Tensor,
                              x_gen: torch.Tensor, s_x: torch.Tensor, s_gen: torch.Tensor,
                              mode: str = "rep_gp", generator: Optional[torch.Generator] = None,
                              uni: Optional[torch.Tensor] = None,
-                             labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                             labels: Optional[torch.Tensor] = None, dp=None) -> torch.Tensor:
         """The MMD witness gradient penalty at interpolates, the witness
-        taken against the step's scores ``s_x`` and ``s_gen``."""
+        taken against the step's scores ``s_x`` and ``s_gen`` (the global
+        ones under a mesh, whose penalty mean is global too)."""
         x_hat = self._interpolates(x, x_gen, generator, uni)
         s_hat = self._dis_fwd(params_d, state, x_hat, labels)
         dist_zx = get_squared_dist(s_hat, s_x, mode="xy")
@@ -271,64 +296,100 @@ class SNGan:
             wit = witness_g(dist_zx, dist_zy, sigma=1.0)
         else:
             raise NotImplementedError(f"gradient penalty: {mode} not implemented")
-        return _norm_penalty(_input_grad(wit, x_hat))
+        return _norm_penalty(_input_grad(wit, x_hat), dp)
 
     def mmd_gradient_scale(self, params_d: Dict, state: Dict, x: torch.Tensor,
-                           labels: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The scaled-MMD discriminator scale 1 / (w E||J||_F^2 + 1)."""
+                           labels: Optional[torch.Tensor] = None, dp=None) -> torch.Tensor:
+        """The scaled-MMD discriminator scale 1 / (w E||J||_F^2 + 1), E
+        over the global batch under a mesh."""
         jaco = jacobian_squared_frobenius_norm(
             lambda xx: self._dis_fwd(params_d, state, xx, labels), x)
-        return 1.0 / (self.penalty_weight * torch.mean(jaco) + 1.0)
+        return 1.0 / (self.penalty_weight * batch_mean(jaco, dp) + 1.0)
+
+    def step_codes(self, generator: Optional[torch.Generator], batch_size: int,
+                   code_batch: Optional[Dict] = None, data_y: Optional[torch.Tensor] = None,
+                   dp=None, micro_batches: int = 1) -> Dict[str, Optional[torch.Tensor]]:
+        """A train step's codes (``sample_codes``): ``code_batch`` overrides
+        the z (and label) draws; with ``sample_same_class`` the code labels
+        are ``data_y``. With a mesh, ``batch_size`` is the rank's, the codes
+        are drawn (or given) at the global batch and the rank takes its
+        rows (``DataParallel.local_rows``, micro-major over
+        ``micro_batches``); same-class labels are the rank's own
+        ``data_y``."""
+        code_batch = code_batch or {}
+        code_y = code_batch.get("y")
+        same = code_y is None and self.sample_same_class and data_y is not None
+        if same:
+            code_y = data_y
+        if dp is None:
+            return self.sample_codes(generator, batch_size, code_batch.get("x"), code_y)
+        codes = self.sample_codes(generator, batch_size * dp.size, code_batch.get("x"),
+                                  None if same else code_y, draw_labels=not same)
+        codes = {k: None if v is None else dp.local_rows(v, micro_batches)
+                 for k, v in codes.items()}
+        if same:
+            codes["y"] = self.as_labels(data_y, batch_size)
+        return codes
 
     def gen_stage(self, params_gen: Dict, state: Dict, batch_size: int,
                   generator: Optional[torch.Generator] = None,
                   code_batch: Optional[Dict] = None, train: bool = True,
-                  data_y: Optional[torch.Tensor] = None):
+                  data_y: Optional[torch.Tensor] = None, dp=None):
         """Generator half of the train step: returns (gen_x NCHW,
-        gen_state, code_batch). ``code_batch`` overrides the z (and label)
-        draws; with ``sample_same_class`` the code labels are ``data_y``."""
-        code_batch = code_batch or {}
-        code_y = code_batch.get("y")
-        if code_y is None and self.sample_same_class and data_y is not None:
-            code_y = data_y
-        code_batch = self.sample_codes(generator, batch_size, code_batch.get("x"), code_y)
+        gen_state, code_batch), the codes from ``step_codes``."""
+        code_batch = self.step_codes(generator, batch_size, code_batch, data_y, dp)
         gen_x, gen_state = self.Gen.apply(params_gen, state["gen"], code_batch["x"], train=train,
-                                          label=code_batch["y"])
+                                          label=code_batch["y"], dp=dp)
         return gen_x, gen_state, code_batch
 
     def dis_stage(self, params_dis: Dict, gen_x: torch.Tensor, state: Dict,
                   loss_state: LossState, x_real: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
-                  y_real: Optional[torch.Tensor] = None, code_y: Optional[torch.Tensor] = None):
+                  y_real: Optional[torch.Tensor] = None, code_y: Optional[torch.Tensor] = None,
+                  uni=None, dp=None):
         """Discriminator + loss half: ONE D pass on concat(real, fake),
         real first, against concat(``y_real``, ``code_y``) for a
         conditional model, then the penalty or scale (on the real labels),
-        then the loss. NCHW inputs. The loss's draws, then the penalty's,
-        come from ``generator`` in that order. Returns (loss_gen, loss_dis,
-        dis_state, new_loss_state, aux)."""
+        then the loss. NCHW inputs. The loss's draws, then the penalty's
+        (unless ``uni`` gives its interpolation weights, [B, 1, 1, 1] at the
+        global batch), come from ``generator`` in that order. Under a mesh
+        the scores are gathered (``gather_scores``) before the loss and the
+        witness. Returns (loss_gen, loss_dis, dis_state, new_loss_state,
+        aux)."""
         batch_size = x_real.shape[0]
         dis_in = self.concat_two_batches({"x": x_real, "y": y_real}, {"x": gen_x, "y": code_y})
         scores, dis_state = self.Dis.apply(params_dis, state["dis"], dis_in["x"], train=True,
-                                           label=dis_in["y"])
-        s_x, s_gen = scores[:batch_size], scores[batch_size:]
+                                           label=dis_in["y"], dp=dp)
+        if dp is None:
+            s_x, s_gen = scores[:batch_size], scores[batch_size:]
+        else:
+            s_x, s_gen = gather_scores(scores, dp)
         draws = self.loss_hp.draw(self.loss_type, s_gen, generator)
+        if uni is not None:
+            uni = torch.as_tensor(uni, dtype=torch.float32, device=x_real.device)
+        if dp is not None and self.loss_type in GP_LOSSES + ("wasserstein",):
+            if uni is None:
+                uni = torch.rand((s_x.shape[0], 1, 1, 1), generator=generator,
+                                 device=x_real.device)
+            uni = dp.local_rows(uni)
         dis_penalty = dis_scale = None
         if self.loss_type in GP_LOSSES:
             dis_penalty = self.gp_weight * self.mmd_gradient_penalty(
                 params_dis, state, x_real, gen_x, s_x, s_gen, mode=self.loss_type,
-                generator=generator, labels=y_real)
+                generator=generator, uni=uni, labels=y_real, dp=dp)
         elif self.loss_type == "wasserstein":
             dis_penalty = self.gp_weight * self.gradient_penalty(
-                params_dis, state, x_real, gen_x, generator=generator, labels=y_real)
+                params_dis, state, x_real, gen_x, generator=generator, uni=uni, labels=y_real,
+                dp=dp)
         elif self.loss_type in DS_LOSSES:
-            dis_scale = self.mmd_gradient_scale(params_dis, state, x_real, labels=y_real)
+            dis_scale = self.mmd_gradient_scale(params_dis, state, x_real, labels=y_real, dp=dp)
         loss_gen, loss_dis, new_loss_state, loss_aux = self.loss_hp.apply(
-            s_gen, s_x, self.loss_type, batch_size=batch_size, d=self.score_size,
+            s_gen, s_x, self.loss_type, batch_size=s_x.shape[0], d=self.score_size,
             dis_penalty=dis_penalty, dis_scale=dis_scale, state=loss_state, draws=draws)
         aux = {
             "s_x_mean": torch.mean(s_x),
             "s_gen_mean": torch.mean(s_gen),
-            "x_gen_abs_mean": torch.mean(torch.abs(gen_x)),
+            "x_gen_abs_mean": gathered_mean(torch.abs(gen_x), dp),
             **loss_aux,
         }
         return loss_gen, loss_dis, dis_state, new_loss_state, aux

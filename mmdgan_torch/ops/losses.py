@@ -155,7 +155,9 @@ class GANLoss:
              generator: Optional[torch.Generator]) -> Dict[str, object]:
         """The loss's random draws, in a fixed order, as the keywords of
         :meth:`apply`: the instance-noise normals (gen, then data), omega,
-        the coin's uniforms. Losses that draw nothing return {}."""
+        the coin's uniforms. Losses that draw nothing return {}. A mesh
+        step passes the scores gathered over its ranks, so every rank draws
+        the same numbers from its replica of the generator."""
         dev = score_gen.device
         out: Dict[str, object] = {}
         if loss_type in DRAWS_NOISE:

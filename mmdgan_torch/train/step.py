@@ -27,10 +27,23 @@
   device from a dataset that lives there, the sampler inside the graph,
   labelled and same-class too; it shares ``graph_steps``' window runner
   (``_window_runner``).
-- ``same_class_tables`` / ``class_schedule``: the host tables of same-class
-  sampling, numpy copies of the JAX package's.
-- ``EpochPermuter``: the per-epoch layouts of ``sampling='shuffled_epochs'``.
+- ``same_class_tables`` / ``sharded_same_class_tables`` /
+  ``class_schedule``: the host tables of same-class sampling, numpy copies
+  of the JAX package's.
+- ``EpochPermuter``: the per-epoch layouts of ``sampling='shuffled_epochs'``,
+  one device's or one rank's shard's.
 - ``build_eval_step``: eval-mode generation.
+
+Data parallelism: the step builders take ``dp`` (a
+``parallel.DataParallel``) and then build the step of one rank of the
+mesh, with the global-batch semantics of one device at the global batch
+(``parallel/collectives.py``): each rank feeds its rows of the global
+batch, the step draws at the global batch and takes its rows, gathers the
+scores, and averages each network's gradients over the ranks through one
+flat buffer, every step, whatever ``do_dis``/``do_gen`` are (so a captured
+window issues a fixed sequence of collectives). Without ``dp`` no
+collective runs. The device-data step shards the dataset
+(``with_mesh``).
 """
 
 from __future__ import annotations
@@ -49,8 +62,16 @@ from mmdgan_torch.models.sngan import (
     jacobian_squared_frobenius_norm,
     to_nchw,
 )
+from mmdgan_torch.parallel.collectives import (
+    all_gather,
+    all_gather_raw,
+    average_flat,
+    batch_mean,
+    from_rank0,
+    gathered_mean,
+)
 from mmdgan_torch.train.optim import Optimizer
-from mmdgan_torch.train.state import TrainState, copy_tree_, loss_state_leaves, tree_leaves
+from mmdgan_torch.train.state import TrainState, loss_state_leaves, tree_leaves
 
 
 def init_train_state(model: SNGan, seed: int, opt_dis: Optimizer, opt_gen: Optimizer,
@@ -91,35 +112,61 @@ def _update(opt: Optimizer, do, leaves, grads, opt_state) -> None:
         opt.update_(leaves, grads, opt_state)
 
 
+def _set_net_state(ts: TrainState, new, dp) -> None:
+    """Write the step's new SN vectors and BN statistics (a tree or its
+    leaves) into the state in place; under a mesh, rank 0's (the BN
+    statistics are global already; the SN vectors are each rank's own
+    power iteration, which a nondeterministic kernel may round
+    differently)."""
+    leaves = tree_leaves(new) if isinstance(new, dict) else list(new)
+    if dp is not None:
+        leaves = from_rank0(leaves, dp)
+    with torch.no_grad():
+        torch._foreach_copy_(tree_leaves(ts.net_state), leaves)
+
+
+def _check_mesh(dp, dev: torch.device) -> None:
+    if dp is not None and dp.device != dev:
+        raise ValueError(f"the mesh's rank runs on {dp.device}, the model on {dev}")
+
+
 def build_train_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
-                     device: DeviceLike = None) -> Callable:
+                     device: DeviceLike = None, dp=None) -> Callable:
     """Returns ``train_step(ts, data_batch, do_dis=True, do_gen=True,
-    code_batch=None) -> (ts, metrics)``. ``data_batch['x']`` is NHWC
-    ([B, H, W, C], float in [-1, 1] or uint8); ``code_batch={'x': z}``
-    replaces the z draw, as ``gen_stage(code_batch=...)`` does in JAX. The
-    step draws from the state's one generator in a fixed order: z, then
-    the loss's draws, then the penalty's interpolation weights (JAX splits
-    its key into ``rng_code``, ``rng_loss`` and ``rng_gp``)."""
+    code_batch=None, uni=None) -> (ts, metrics)``. ``data_batch['x']`` is
+    NHWC ([B, H, W, C], float in [-1, 1] or uint8); ``code_batch={'x': z}``
+    replaces the z draw, as ``gen_stage(code_batch=...)`` does in JAX, and
+    ``uni`` ([B, 1, 1, 1]) the penalty's interpolation weights. The step
+    draws from the state's one generator in a fixed order: z, then the
+    loss's draws, then the penalty's interpolation weights (JAX splits its
+    key into ``rng_code``, ``rng_loss`` and ``rng_gp``).
+
+    With a mesh (``dp``) ``data_batch`` holds the rank's rows and
+    ``code_batch`` and ``uni`` the global batch's; the gradients are
+    averaged over the ranks. ``train_step.dp`` is the mesh."""
     dev = check_device(model.device, device)
+    _check_mesh(dp, dev)
 
     def train_step(ts: TrainState, data_batch: Dict, do_dis: bool = True,
-                   do_gen: bool = True, code_batch: Optional[Dict] = None):
+                   do_gen: bool = True, code_batch: Optional[Dict] = None, uni=None):
         x = torch.as_tensor(data_batch["x"], device=dev)
         x = to_nchw(decode_image_batch({"x": x})["x"])
         y = model.as_labels(data_batch.get("y"), x.shape[0])
         gen_x, gen_state, codes = model.gen_stage(
-            ts.params["gen"], ts.net_state, x.shape[0], ts.rng, code_batch, data_y=y)
+            ts.params["gen"], ts.net_state, x.shape[0], ts.rng, code_batch, data_y=y, dp=dp)
         loss_gen, loss_dis, dis_state, new_loss_state, aux = model.dis_stage(
             ts.params["dis"], gen_x, ts.net_state, ts.loss_state, x, generator=ts.rng,
-            y_real=y, code_y=codes["y"])
+            y_real=y, code_y=codes["y"], uni=uni, dp=dp)
         dis_leaves = tree_leaves(ts.params["dis"])
         gen_leaves = tree_leaves(ts.params["gen"])
         grads_dis = _grads(loss_dis, dis_leaves, retain_graph=True)
         grads_gen = _grads(loss_gen, gen_leaves)
+        if dp is not None:
+            grads_dis, grads_gen = average_flat(grads_dis, dp), average_flat(grads_gen, dp)
         _update(opt_dis, do_dis, dis_leaves, grads_dis, ts.opt_state_dis)
         _update(opt_gen, do_gen, gen_leaves, grads_gen, ts.opt_state_gen)
         # after both gradients: autograd saved the old SN vectors
-        copy_tree_(ts.net_state, {"gen": gen_state, "dis": dis_state})
+        _set_net_state(ts, {"gen": gen_state, "dis": dis_state}, dp)
         with torch.no_grad():
             torch._foreach_copy_(loss_state_leaves(ts.loss_state),
                                  loss_state_leaves(new_loss_state))
@@ -131,11 +178,12 @@ def build_train_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
             metrics["grad_norm_gen"] = _global_norm(grads_gen)
         return ts, metrics
 
+    train_step.dp = dp
     return train_step
 
 
 def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
-                          micro_batches: int, device: DeviceLike = None) -> Callable:
+                          micro_batches: int, device: DeviceLike = None, dp=None) -> Callable:
     """One optimizer step over a global batch run in M micro-batches
     (``mmdgan_tpu/train/step.py:157-473``): batches whose activations
     outgrow the card, at 1/M of the activation memory for about twice the
@@ -173,8 +221,19 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
     With BN, train mode normalises each micro-batch by its own
     statistics, and the step's moving-statistic update is the average of
     the micro-batches' updates (every state leaf is averaged; the SN
-    vectors are the same in every micro-batch)."""
+    vectors are the same in every micro-batch).
+
+    With a mesh (``dp``), micro-batch m is still global rows [mB/M,
+    (m+1)B/M) as in JAX (``mmdgan_tpu/train/step.py:221-223``), so rank r
+    holds the r-th B/(MN) rows of every micro-batch: its ``data_batch`` is
+    that micro-major shard (``DataParallel.local_rows(x, M)``), and z and
+    ``uni``, drawn or given at the global batch, are sliced so. Pass 1
+    gathers each micro-batch's scores; pass 2 pulls the global cotangents
+    through the same gather; the penalty's score cotangents and the
+    gradients are averaged over the ranks."""
     dev = check_device(model.device, device)
+    _check_mesh(dp, dev)
+    ranks = 1 if dp is None else dp.size
     m_count = int(micro_batches)
     if m_count < 1:
         raise ValueError(f"micro_batches must be >= 1, got {micro_batches}")
@@ -187,26 +246,33 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         """Scores of concat(real, fake), real first; the new states; the
         generated images."""
         gen_x, gen_state = model.Gen.apply(ts.params["gen"], ts.net_state["gen"], mb["z"],
-                                           train=True, label=mb["zy"])
+                                           train=True, label=mb["zy"], dp=dp)
         dis_in = model.concat_two_batches({"x": mb["x"], "y": mb["y"]},
                                           {"x": gen_x, "y": mb["zy"]})
         scores, dis_state = model.Dis.apply(ts.params["dis"], ts.net_state["dis"], dis_in["x"],
-                                            train=True, label=dis_in["y"])
+                                            train=True, label=dis_in["y"], dp=dp)
         return scores, {"gen": gen_state, "dis": dis_state}, gen_x
+
+    def global_rows(scores: torch.Tensor, gather: Callable) -> torch.Tensor:
+        """A micro-batch's scores of concat(real, fake) on every rank as
+        the global micro-batch's: real rows of ranks 0..N-1, then the
+        generated ones."""
+        if dp is None:
+            return scores
+        n = scores.shape[0] // 2
+        both = gather(scores, dp).view(ranks, 2, n, scores.shape[1])
+        return both.transpose(0, 1).reshape(2 * ranks * n, scores.shape[1])
 
     def train_step(ts: TrainState, data_batch: Dict, do_dis: bool = True, do_gen: bool = True,
                    code_batch: Optional[Dict] = None, uni: Optional[torch.Tensor] = None):
         x = torch.as_tensor(data_batch["x"], device=dev)
         x = to_nchw(decode_image_batch({"x": x})["x"])
-        b = x.shape[0]
-        if b % m_count:
-            raise ValueError(f"a batch of {b} does not split into {m_count} micro-batches")
+        b = x.shape[0] * ranks
+        if x.shape[0] % m_count:
+            raise ValueError(f"a batch of {x.shape[0]} does not split into {m_count} "
+                             "micro-batches")
         y = model.as_labels(data_batch.get("y"), x.shape[0])
-        code_batch = code_batch or {}
-        code_y = code_batch.get("y")
-        if code_y is None and model.sample_same_class and y is not None:
-            code_y = y
-        codes = model.sample_codes(ts.rng, b, code_batch.get("x"), code_y)
+        codes = model.step_codes(ts.rng, x.shape[0], code_batch, y, dp, m_count)
         split = lambda t: [None] * m_count if t is None else t.chunk(m_count)   # noqa: E731
         mbs = [dict(zip(("x", "y", "z", "zy"), parts)) for parts in
                zip(x.chunk(m_count), split(y), codes["x"].chunk(m_count), split(codes["y"]))]
@@ -220,15 +286,16 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         with torch.no_grad():
             for mb in mbs:
                 scores, _, gen_x = micro_fwd(ts, mb)
+                scores = global_rows(scores, all_gather_raw)
                 s_xs.append(scores[:n])
                 s_gens.append(scores[n:])
                 if needs_gx:
                     gxs.append(gen_x)
                 else:
-                    gx_abs.append(torch.mean(torch.abs(gen_x)))
+                    gx_abs.append(gathered_mean(torch.abs(gen_x), dp))
         # the global scores, leaves of the penalty's and the loss's pulls
         s_x, s_gen = torch.cat(s_xs).requires_grad_(True), torch.cat(s_gens).requires_grad_(True)
-        gx_abs_mean = (torch.mean(torch.abs(torch.cat(gxs))) if needs_gx else
+        gx_abs_mean = (gathered_mean(torch.abs(torch.cat(gxs)), dp) if needs_gx else
                        torch.mean(torch.stack(gx_abs)))
         draws = model.loss_hp.draw(loss_type, s_gen, ts.rng)
 
@@ -237,19 +304,23 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         if needs_gx:
             if uni is None:
                 uni = torch.rand((b, 1, 1, 1), generator=ts.rng, device=dev)
-            unis = torch.as_tensor(uni, dtype=torch.float32, device=dev).chunk(m_count)
+            uni = torch.as_tensor(uni, dtype=torch.float32, device=dev)
+            unis = (uni if dp is None else dp.local_rows(uni, m_count)).chunk(m_count)
             wrt = dis_leaves + ([s_x, s_gen] if is_gp else [])
             pen_sum, pen_gd = 0.0, [torch.zeros_like(t) for t in wrt]
             for xm, ym, gxm, um in zip(xs, ys, gxs, unis):
                 if is_gp:
                     pen = model.mmd_gradient_penalty(ts.params["dis"], ts.net_state, xm, gxm,
                                                      s_x, s_gen, mode=loss_type, uni=um,
-                                                     labels=ym)
+                                                     labels=ym, dp=dp)
                 else:
                     pen = model.gradient_penalty(ts.params["dis"], ts.net_state, xm, gxm, uni=um,
-                                                 labels=ym)
+                                                 labels=ym, dp=dp)
                 torch._foreach_add_(pen_gd, _grads(pen, wrt))
                 pen_sum = pen_sum + pen.detach()
+            if is_gp and dp is not None:
+                # every rank holds the scores: their cotangents are averaged
+                pen_gd[-2:] = average_flat(pen_gd[-2:], dp)
             # the mean over B rows is the mean of the M equal micro means
             pen_in = (model.gp_weight * pen_sum / m_count).requires_grad_(True)
         elif is_ds:
@@ -257,7 +328,7 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
             for xm, ym in zip(xs, ys):
                 def fwd(xx, ym=ym):
                     return model._dis_fwd(ts.params["dis"], ts.net_state, xx, ym)
-                jaco = torch.mean(jacobian_squared_frobenius_norm(fwd, xm))
+                jaco = batch_mean(jacobian_squared_frobenius_norm(fwd, xm), dp)
                 torch._foreach_add_(pen_gd, _grads(jaco, dis_leaves))
                 jaco_sum = jaco_sum + jaco.detach()
             dis_scale = 1.0 / (model.penalty_weight * (jaco_sum / m_count) + 1.0)
@@ -285,6 +356,7 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         state_sum = [torch.zeros_like(t) for t in tree_leaves(ts.net_state)]
         for mb, ct_d, ct_g in zip(mbs, cts_d, cts_g):
             scores, new_state, _ = micro_fwd(ts, mb)
+            scores = global_rows(scores, all_gather)
             torch._foreach_add_(grads_dis, _grads(scores, dis_leaves, True, ct_d))
             torch._foreach_add_(grads_gen, _grads(scores, gen_leaves, False, ct_g))
             torch._foreach_add_(state_sum, tree_leaves(new_state))
@@ -294,11 +366,13 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
             # scale = 1 / (w mean + 1), so d scale / d mean = -w scale^2
             w_ds = cd_extra[0] * (-model.penalty_weight * dis_scale.detach() ** 2) / m_count
             torch._foreach_add_(grads_dis, torch._foreach_mul(pen_gd, w_ds))
+        if dp is not None:
+            grads_dis, grads_gen = average_flat(grads_dis, dp), average_flat(grads_gen, dp)
 
         _update(opt_dis, do_dis, dis_leaves, grads_dis, ts.opt_state_dis)
         _update(opt_gen, do_gen, gen_leaves, grads_gen, ts.opt_state_gen)
         with torch.no_grad():
-            torch._foreach_copy_(tree_leaves(ts.net_state), torch._foreach_div(state_sum, m_count))
+            _set_net_state(ts, torch._foreach_div(state_sum, m_count), dp)
             torch._foreach_copy_(loss_state_leaves(ts.loss_state),
                                  loss_state_leaves(new_loss_state))
             ts.step.add_(1)
@@ -310,6 +384,7 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
             metrics["grad_norm_gen"] = _global_norm(grads_gen)
         return ts, metrics
 
+    train_step.dp = dp
     return train_step
 
 
@@ -382,7 +457,15 @@ class StepGraphs:
         return out
 
 
-def _graphed(dev: torch.device, capture: Optional[bool]) -> bool:
+def _graphed(dev: torch.device, capture: Optional[bool], dp=None) -> bool:
+    """Whether a window is captured: on CUDA unless ``capture=False``. A
+    gloo mesh runs eager windows, by rule: its collectives move through
+    host memory, which a CUDA graph cannot capture (an NCCL mesh's are
+    captured, and a capture that fails raises)."""
+    if dp is not None and dp.backend == "gloo":
+        if capture:
+            raise ValueError("a gloo mesh runs eager windows: its collectives cannot be captured")
+        return False
     if capture is None:
         return dev.type == "cuda"
     if capture and dev.type != "cuda":
@@ -463,6 +546,7 @@ def _window_runner(step: Callable, num_steps: int, capture: Optional[bool]) -> C
     any case."""
     graphs = StepGraphs()
     stage = _Staging()
+    dp = getattr(step, "dp", None)
 
     def run(ts: TrainState, key, batch_at: Callable, bound: List[torch.Tensor],
             generators: List[torch.Generator], do_dis: bool, do_gen: bool,
@@ -474,7 +558,7 @@ def _window_runner(step: Callable, num_steps: int, capture: Optional[bool]) -> C
                                    torch.float32),
                      "y": _stacked("code labels", code_batches.get("y"), num_steps, dev,
                                    torch.int64)}
-        if not _graphed(dev, capture):
+        if not _graphed(dev, capture, dp):
             return ts, _as_metrics(
                 _window(step, ts, num_steps, batch_at, codes, do_dis, do_gen), False)
         key = (bool(do_dis), bool(do_gen), key,
@@ -486,6 +570,7 @@ def _window_runner(step: Callable, num_steps: int, capture: Optional[bool]) -> C
         return ts, _as_metrics(out, True)
 
     run.graphs = graphs
+    run.dp = dp
     return run
 
 
@@ -508,6 +593,7 @@ def _host_window(step: Callable, num_steps: int, capture: Optional[bool]) -> Cal
                    bound, generators, do_dis, do_gen, code_batches)
 
     window.graphs = run.graphs
+    window.dp = run.dp
     return window
 
 
@@ -531,15 +617,17 @@ def graph_steps(step: Callable, num_steps: int, capture: Optional[bool] = None) 
         return window(ts, batches, [], [], do_dis, do_gen, code_batches)
 
     multi_step.graphs = window.graphs
+    multi_step.dp = window.dp
     return multi_step
 
 
 def build_multi_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer, num_steps: int,
-                     device: DeviceLike = None, capture: Optional[bool] = None) -> Callable:
+                     device: DeviceLike = None, capture: Optional[bool] = None,
+                     dp=None) -> Callable:
     """K train steps per call over a K-stacked batch (``graph_steps`` of
     ``build_train_step``): one CUDA graph launch per call on CUDA, the
     counterpart of one ``lax.scan`` launch."""
-    return graph_steps(build_train_step(model, opt_dis, opt_gen, device), num_steps, capture)
+    return graph_steps(build_train_step(model, opt_dis, opt_gen, device, dp), num_steps, capture)
 
 
 def imbalanced_scan(step: Callable, num_steps: int, imbalanced,
@@ -564,19 +652,54 @@ def imbalanced_scan(step: Callable, num_steps: int, imbalanced,
     ``metrics['do_dis']`` is stacked like the other scalars. The flags
     reach ``step`` as 0-d bool tensors, so its updates are gated by
     selection (``Optimizer.gated_update_``)."""
+    scheduled, carried = _scheduled_step(step, imbalanced)
+    window = _host_window(scheduled, num_steps, capture)
+
+    def multi_step(ts: TrainState, batches: Dict, rng: Optional[torch.Generator],
+                   mmd_avg: torch.Tensor, code_batches: Optional[Dict] = None):
+        carried.set(ts, rng, mmd_avg)
+        return window(ts, batches, [mmd_avg], carried.generators, True, True, code_batches)
+
+    multi_step.graphs = window.graphs
+    multi_step.dp = window.dp
+    return multi_step
+
+
+class _Carried:
+    """What an imbalanced window carries across calls: the generator of a
+    'dynamic' schedule and the loss average, bound to the graphs."""
+
+    def __init__(self, is_list: bool):
+        self.is_list = is_list
+        self.rng = self.avg = None
+        self.generators: List[torch.Generator] = []
+
+    def set(self, ts: TrainState, rng: Optional[torch.Generator], avg: torch.Tensor) -> None:
+        if avg.device != ts.step.device:
+            raise ValueError(f"mmd_avg on {avg.device}, state on {ts.step.device}")
+        self.rng, self.avg = rng, avg
+        self.generators = [] if self.is_list else [rng]
+
+
+def _scheduled_step(step: Callable, imbalanced) -> Tuple[Callable, _Carried]:
+    """``step`` with its update flags computed on the device from the step
+    count (``[a, b]``) or from a uniform of the carried generator and the
+    carried loss average (``'dynamic'``); the average advances after every
+    step. Every rank of a mesh decides alike: the count, the generator and
+    the average (of the global loss) are replicated."""
     is_list = isinstance(imbalanced, (list, tuple))
     if not is_list and imbalanced != "dynamic":
         raise ValueError(f"imbalanced schedule {imbalanced!r} not supported")
-    carried: Dict = {}
+    carried = _Carried(is_list)
 
     def scheduled(ts: TrainState, batch: Dict, _do_dis, _do_gen,
                   code_batch: Optional[Dict] = None):
-        avg = carried["avg"]
+        avg = carried.avg
         if is_list:
             do_dis = torch.remainder(ts.step, imbalanced[0]) == 0
             do_gen = torch.remainder(ts.step, imbalanced[1]) == 0
         else:
-            u = torch.rand((), generator=carried["rng"], device=avg.device)
+            u = torch.rand((), generator=carried.rng, device=avg.device)
             do_dis = (ts.step < 1000) | (u < 0.1 / torch.clamp(avg, min=0.1))
             do_gen = torch.ones((), dtype=torch.bool, device=avg.device)
         args = () if code_batch is None else (code_batch,)
@@ -586,25 +709,15 @@ def imbalanced_scan(step: Callable, num_steps: int, imbalanced,
         metrics["do_dis"] = do_dis.float()
         return ts, metrics
 
-    window = _host_window(scheduled, num_steps, capture)
-
-    def multi_step(ts: TrainState, batches: Dict, rng: Optional[torch.Generator],
-                   mmd_avg: torch.Tensor, code_batches: Optional[Dict] = None):
-        if mmd_avg.device != ts.step.device:
-            raise ValueError(f"mmd_avg on {mmd_avg.device}, state on {ts.step.device}")
-        carried.update(rng=rng, avg=mmd_avg)
-        return window(ts, batches, [mmd_avg], [] if is_list else [rng], True, True,
-                      code_batches)
-
-    multi_step.graphs = window.graphs
-    return multi_step
+    scheduled.dp = getattr(step, "dp", None)
+    return scheduled, carried
 
 
 def build_imbalanced_multi_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
                                 num_steps: int, imbalanced, device: DeviceLike = None,
-                                capture: Optional[bool] = None) -> Callable:
+                                capture: Optional[bool] = None, dp=None) -> Callable:
     """``imbalanced_scan`` of ``build_train_step``."""
-    return imbalanced_scan(build_train_step(model, opt_dis, opt_gen, device), num_steps,
+    return imbalanced_scan(build_train_step(model, opt_dis, opt_gen, device, dp), num_steps,
                            imbalanced, capture)
 
 
@@ -623,6 +736,36 @@ def same_class_tables(y, num_class: int) -> Tuple[np.ndarray, np.ndarray]:
     for c in range(num_class):
         table[c] = np.resize(np.nonzero(y == c)[0].astype(np.int32), width)
     return table, counts
+
+
+def sharded_same_class_tables(y, num_class: int, num_shards: int,
+                              width: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-rank class tables over a dataset sharded in contiguous row
+    blocks (shard d holds rows ``[d*N/D, (d+1)*N/D)``), each indexing the
+    LOCAL rows of its block (a copy of
+    ``mmdgan_tpu/train/step.py:588-630``, bitwise equal).
+
+    Returns (tables [num_shards, num_class, width] int32, counts
+    [num_shards, num_class] int32); rank d takes ``tables[d]``. Every class
+    must be present on every shard (shuffle a class-sorted source first).
+    ``width`` > 0 pins the width instead of the largest local count."""
+    y = np.asarray(y).reshape(-1)
+    n = y.shape[0]
+    assert n % num_shards == 0, f"dataset rows {n} must divide over {num_shards} devices"
+    local_n = n // num_shards
+    per_shard = [same_class_tables(y[d * local_n:(d + 1) * local_n], num_class)
+                 for d in range(num_shards)]
+    max_count = max(t.shape[1] for t, _ in per_shard)
+    if width:
+        assert width >= max_count, (width, max_count)
+    else:
+        width = max_count
+    tables = np.zeros((num_shards, num_class, width), np.int32)
+    counts = np.zeros((num_shards, num_class), np.int32)
+    for d, (t, c) in enumerate(per_shard):
+        tables[d] = np.stack([np.resize(t[k, :c[k]], width) for k in range(num_class)])
+        counts[d] = c
+    return tables, counts
 
 
 def class_schedule(num_class: int, n_steps: int, seed: int) -> np.ndarray:
@@ -663,16 +806,20 @@ def splitmix64(x: torch.Tensor) -> torch.Tensor:
 
 
 def class_epoch_slots(seed: int, c: torch.Tensor, e: torch.Tensor, count: torch.Tensor,
-                      width: int) -> torch.Tensor:
+                      width: int, rank: int = 0) -> torch.Tensor:
     """A uniform permutation of class ``c``'s ``count`` valid slots for its
     class-epoch ``e``: the argsort of counter-based hashes of (seed, c, e,
     slot), the padded slots pushed past the valid ones. A pure function of
     its arguments, computed on the device (the counterpart of JAX's
     ``fold_in(fold_in(key, c), e)`` uniforms, ``step.py:763-801``; the
-    numbers differ)."""
+    numbers differ). A mesh rank > 0 folds its index in after the seed,
+    as JAX folds the device index (``:1009-1010``); rank 0 keeps the
+    single-device stream."""
     slot = torch.arange(width, device=c.device, dtype=torch.int64)
-    h = splitmix64(splitmix64(splitmix64(torch.full_like(c, seed, dtype=torch.int64))
-                              ^ c.long()) ^ e.long())
+    h = splitmix64(torch.full_like(c, seed, dtype=torch.int64))
+    if rank:
+        h = splitmix64(h ^ rank)
+    h = splitmix64(splitmix64(h ^ c.long()) ^ e.long())
     keys = splitmix64(h ^ slot) & ((1 << 63) - 1)
     keys = torch.where(slot < count, keys, torch.full_like(keys, (1 << 63) - 1))
     return torch.argsort(keys, stable=True)
@@ -728,8 +875,29 @@ def build_device_data_step(
     runs the K steps eagerly. ``fn.sampler(data_x, data_y)`` returns it as
     ``sample(rng, step, sched=None) -> batch``. ``micro_batches`` > 1 swaps
     the step for ``build_grad_accum_step`` behind the same sampler and
-    windows (``mmdgan_tpu/train/step.py:723-732``). The mesh
-    (``with_mesh``, ROADMAP A15) raises."""
+    windows (``mmdgan_tpu/train/step.py:723-732``).
+
+    ``fn.with_mesh(dp, axis=None, imbalanced=None)`` returns the same
+    window over a mesh and/or under an update schedule
+    (``mmdgan_tpu/train/step.py:1031-1146``):
+    - with ``dp`` each rank holds its shard of the dataset (``data_x`` /
+      ``data_y`` are the rank's rows) and takes its B/N rows of every
+      batch from it, so the dataset costs N/D rows per card and sampling
+      needs no collective. The uniform samplers draw the global batch's
+      numbers from the replicated ``rng`` and each rank takes its block
+      of them (its indices into its own rows: a stream per (seed, rank));
+      same-class draws one global class per step and the rank's slots of
+      it from its own class table (``class_table`` [C, width] over its
+      rows, or ``sharded_same_class_tables``' [N, C, width], of which the
+      rank takes its own); the scheduled sampler walks each class's local
+      epochs with the rank folded into the permutation's hash; shuffled
+      epochs slice the rank's rows, which the caller re-permutes
+      (``EpochPermuter.sharded``);
+    - ``imbalanced`` ([a, b] or 'dynamic', as ``imbalanced_scan``)
+      computes the update flags on the device; the window is then
+      ``fn(ts, data_x, data_y, rng, mmd_avg, code_batches=None)``, the
+      'dynamic' uniform drawn from ``rng`` after each step's batch. Not
+      with same-class shuffled epochs (its schedule is step-indexed)."""
     if sampling not in ("uniform", "shuffled_epochs"):
         raise ValueError(f"unknown sampling {sampling!r}")
     if int(micro_batches) < 1 or batch_size % int(micro_batches):
@@ -741,92 +909,136 @@ def build_device_data_step(
             raise ValueError("same_class sampling needs same_class_tables(y, num_class)")
         class_table = np.asarray(class_table)
         class_counts = np.asarray(class_counts)
-        if scheduled and int(class_counts.min()) < batch_size:
-            raise ValueError(f"same_class + shuffled_epochs needs every class to hold >= "
-                             f"batch_size rows; min count {int(class_counts.min())} < "
-                             f"{batch_size}")
-    step = (build_train_step(model, opt_dis, opt_gen, device) if int(micro_batches) == 1 else
-            build_grad_accum_step(model, opt_dis, opt_gen, micro_batches, device))
-    run = _window_runner(step, num_steps, capture)
-    stage = _Staging()
-    tables: Dict = {}   # device copies of the class tables, made once per device
 
-    def _tables(dev):
-        if dev not in tables:
-            tables[dev] = (torch.as_tensor(class_table, dtype=torch.int64, device=dev),
-                           torch.as_tensor(class_counts, dtype=torch.int64, device=dev))
-        return tables[dev]
-
-    def sampler(data_x: torch.Tensor, data_y: Optional[torch.Tensor] = None) -> Callable:
-        n, dev = data_x.shape[0], data_x.device
-        b = batch_size
-
-        def take(idx, c=None):
-            y = (data_y.index_select(0, idx) if data_y is not None else
-                 None if c is None else c.expand(b, 1).clone())
-            return {"x": data_x.index_select(0, idx), "y": y}
-
+    def make(dp=None, axis: Optional[str] = None, imbalanced=None) -> Callable:
+        if dp is not None and axis is not None and axis != dp.axis:
+            raise ValueError(f"the mesh's axis is {dp.axis!r}, not {axis!r}")
+        if scheduled and imbalanced is not None:
+            raise ValueError("same_class + shuffled_epochs is not combinable with imbalanced "
+                             "schedules (the class schedule is step-indexed)")
+        ranks, rank = (1, 0) if dp is None else (dp.size, dp.rank)
+        if batch_size % (ranks * int(micro_batches)):
+            raise ValueError(f"a batch of {batch_size} does not split over {ranks} ranks x "
+                             f"{micro_batches} micro-batches")
+        b = batch_size // ranks
+        table = counts = None
         if same_class:
-            tbl, cnt = _tables(dev)
-            # a class's row table and count, gathered on the device
-            row_of = lambda c: (tbl.index_select(0, c.view(1))[0],   # noqa: E731
-                                cnt.index_select(0, c.view(1))[0])
-            if scheduled:
-                def sample(rng, step_count, sched):
-                    c, k = sched[0].long(), sched[1].long()
-                    rows_c, count = row_of(c)
-                    dpe = torch.clamp(count // b, min=1)
-                    slots = class_epoch_slots(sampler_seed, c, k // dpe, count, tbl.shape[1])
-                    rows = torch.arange(b, device=dev) + (k % dpe) * b
-                    return take(rows_c.index_select(0, slots.index_select(0, rows)), c)
+            table, counts = class_table, class_counts
+            if table.ndim == 3:
+                if table.shape[0] != ranks:
+                    raise ValueError(f"sharded class tables for {table.shape[0]} ranks, the "
+                                     f"mesh has {ranks}")
+                table, counts = table[rank], counts[rank]
+            if scheduled and int(counts.min()) < b:
+                raise ValueError(f"same_class + shuffled_epochs needs every class to hold >= "
+                                 f"batch_size rows (batch_size / ranks on a mesh's shard); "
+                                 f"min count {int(counts.min())} < {b}")
+        step = (build_train_step(model, opt_dis, opt_gen, device, dp) if int(micro_batches) == 1
+                else build_grad_accum_step(model, opt_dis, opt_gen, micro_batches, device, dp))
+        carried = None
+        if imbalanced is not None:
+            step, carried = _scheduled_step(step, imbalanced)
+        run = _window_runner(step, num_steps, capture)
+        stage = _Staging()
+        tables: Dict = {}   # device copies of the class tables, made once per device
+
+        def _tables(dev):
+            if dev not in tables:
+                tables[dev] = (torch.as_tensor(table, dtype=torch.int64, device=dev),
+                               torch.as_tensor(counts, dtype=torch.int64, device=dev))
+            return tables[dev]
+
+        def block(t: torch.Tensor) -> torch.Tensor:
+            """This rank's numbers of a draw made for the global batch."""
+            return t if dp is None else t.narrow(0, rank * b, b)
+
+        def sampler(data_x: torch.Tensor, data_y: Optional[torch.Tensor] = None) -> Callable:
+            n, dev = data_x.shape[0], data_x.device
+
+            def take(idx, c=None):
+                y = (data_y.index_select(0, idx) if data_y is not None else
+                     None if c is None else c.expand(b, 1).clone())
+                return {"x": data_x.index_select(0, idx), "y": y}
+
+            if same_class:
+                tbl, cnt = _tables(dev)
+                # a class's row table and count, gathered on the device
+                row_of = lambda c: (tbl.index_select(0, c.view(1))[0],   # noqa: E731
+                                    cnt.index_select(0, c.view(1))[0])
+                if scheduled:
+                    def sample(rng, step_count, sched):
+                        c, k = sched[0].long(), sched[1].long()
+                        rows_c, count = row_of(c)
+                        dpe = torch.clamp(count // b, min=1)
+                        slots = class_epoch_slots(sampler_seed, c, k // dpe, count,
+                                                  tbl.shape[1], rank)
+                        rows = torch.arange(b, device=dev) + (k % dpe) * b
+                        return take(rows_c.index_select(0, slots.index_select(0, rows)), c)
+                else:
+                    def sample(rng, step_count, sched=None):
+                        # one class per batch, B slots of it (group_by_window)
+                        u = torch.rand(batch_size + 1, generator=rng, device=dev,
+                                       dtype=torch.float64)
+                        c = torch.clamp((u[0] * tbl.shape[0]).long(), max=tbl.shape[0] - 1)
+                        rows_c, count = row_of(c)
+                        slot = torch.minimum((block(u[1:]) * count).long(), count - 1)
+                        return take(rows_c.index_select(0, slot), c)
+            elif sampling == "shuffled_epochs":
+                n_batches = n // b
+                if n_batches < 1:
+                    raise ValueError(f"{n} rows hold no batch of {b}")
+
+                def sample(rng, step_count, sched=None):
+                    return take(torch.arange(b, device=dev) + (step_count.long() % n_batches) * b)
             else:
                 def sample(rng, step_count, sched=None):
-                    # one class per batch, B slots of it (group_by_window)
-                    u = torch.rand(b + 1, generator=rng, device=dev, dtype=torch.float64)
-                    c = torch.clamp((u[0] * tbl.shape[0]).long(), max=tbl.shape[0] - 1)
-                    rows_c, count = row_of(c)
-                    slot = torch.minimum((u[1:] * count).long(), count - 1)
-                    return take(rows_c.index_select(0, slot), c)
-        elif sampling == "shuffled_epochs":
-            n_batches = n // b
-            if n_batches < 1:
-                raise ValueError(f"{n} rows hold no batch of {b}")
+                    return take(block(torch.randint(0, n, (batch_size,), generator=rng,
+                                                    device=dev)))
+            return sample
 
-            def sample(rng, step_count, sched=None):
-                return take(torch.arange(b, device=dev) + (step_count.long() % n_batches) * b)
+        def window(ts, data_x, data_y, rng, do_dis, do_gen, code_batches, schedule, extra):
+            if data_x.device != ts.step.device:
+                raise ValueError(f"dataset on {data_x.device}, state on {ts.step.device}")
+            if scheduled and schedule is None:
+                raise ValueError("same_class + shuffled_epochs needs the window's class schedule")
+            sample = sampler(data_x, data_y)
+            sched = None
+            bound = [data_x] + ([] if data_y is None else [data_y]) + extra
+            if scheduled:
+                sched = stage("schedule", _stacked("schedule rows", schedule, num_steps,
+                                                   data_x.device, torch.int64))
+            if same_class:
+                bound += list(_tables(data_x.device))
+            key = _signature(data_x, data_y, sched)
+            batch_at = lambda k: sample(rng, ts.step, None if sched is None else sched[k])  # noqa: E731
+            generators = [rng] if sampling == "uniform" or (carried and not carried.is_list) else []
+            return run(ts, key, batch_at, bound, generators, do_dis, do_gen, code_batches)
+
+        if imbalanced is None:
+            def multi_step(ts: TrainState, data_x: torch.Tensor, data_y, rng: torch.Generator,
+                           do_dis: bool = True, do_gen: bool = True,
+                           code_batches: Optional[Dict] = None, schedule=None):
+                return window(ts, data_x, data_y, rng, do_dis, do_gen, code_batches, schedule,
+                              [])
         else:
-            def sample(rng, step_count, sched=None):
-                return take(torch.randint(0, n, (b,), generator=rng, device=dev))
-        return sample
+            def multi_step(ts: TrainState, data_x: torch.Tensor, data_y, rng: torch.Generator,
+                           mmd_avg: torch.Tensor, code_batches: Optional[Dict] = None):
+                carried.set(ts, rng, mmd_avg)
+                return window(ts, data_x, data_y, rng, True, True, code_batches, None, [mmd_avg])
 
-    def multi_step(ts: TrainState, data_x: torch.Tensor, data_y, rng: torch.Generator,
-                   do_dis: bool = True, do_gen: bool = True, code_batches: Optional[Dict] = None,
-                   schedule=None):
-        if data_x.device != ts.step.device:
-            raise ValueError(f"dataset on {data_x.device}, state on {ts.step.device}")
-        if scheduled and schedule is None:
-            raise ValueError("same_class + shuffled_epochs needs the window's class schedule")
-        sample = sampler(data_x, data_y)
-        sched = None
-        bound = [data_x] + ([] if data_y is None else [data_y])
-        if scheduled:
-            sched = stage("schedule", _stacked("schedule rows", schedule, num_steps,
-                                               data_x.device, torch.int64))
-            bound += list(_tables(data_x.device))
-        elif same_class:
-            bound += list(_tables(data_x.device))
-        key = _signature(data_x, data_y, sched)
-        batch_at = lambda k: sample(rng, ts.step, None if sched is None else sched[k])  # noqa: E731
-        return run(ts, key, batch_at, bound, [rng] if sampling == "uniform" else [],
-                   do_dis, do_gen, code_batches)
+        multi_step.sampler = sampler
+        multi_step.graphs = run.graphs
+        multi_step.dp = dp
+        multi_step.with_mesh = make
+        return multi_step
 
-    def with_mesh(*args, **kwargs):
-        raise NotImplementedError("the dataset sharded over a mesh is not ported yet (ROADMAP A15)")
+    if same_class and class_table.ndim == 3:
+        def needs_mesh(*args, **kwargs):
+            raise ValueError("sharded class tables (one per rank) need with_mesh(dp)")
 
-    multi_step.sampler = sampler
-    multi_step.graphs = run.graphs
-    multi_step.with_mesh = with_mesh
-    return multi_step
+        needs_mesh.with_mesh = make
+        return needs_mesh
+    return make()
 
 
 class EpochPermuter:
@@ -834,13 +1046,13 @@ class EpochPermuter:
     (``mmdgan_tpu/train/step.py:1150-1237``).
 
     The layout for epoch ``e`` is ``orig[perm(e)]``, with ``perm(e)`` made
-    by numpy's ``RandomState`` from the seed and the epoch alone (the same
-    seed formula and permutations as the JAX package, so the layouts are
-    bitwise equal to JAX's); ``perm(0)`` is the identity, kept as None. A
-    resumed run jumps straight to its epoch's layout. Applied as ``delta =
-    inv(perm(prev)) o perm(e)``, one ``index_select`` per epoch, written
-    back in place: the tensor keeps its buffer, so a CUDA graph that reads
-    it stays valid.
+    by numpy's ``RandomState`` from the seed, the epoch and (for a mesh
+    rank's shard) the rank alone (the same seed formula and permutations
+    as the JAX package, so the layouts are bitwise equal to JAX's);
+    ``perm(0)`` is the identity, kept as None. A resumed run jumps
+    straight to its epoch's layout. Applied as ``delta = inv(perm(prev)) o
+    perm(e)``, one ``index_select`` per epoch, written back in place: the
+    tensor keeps its buffer, so a CUDA graph that reads it stays valid.
 
     :param make_perm: e -> np int array [n] for e >= 1
     :param permute: (tensors, delta) -> the same tensors, permuted in place
@@ -853,10 +1065,17 @@ class EpochPermuter:
         self._perm = None
 
     @staticmethod
-    def _perm_seed(seed: int, epoch: int) -> int:
-        """The JAX package's (seed, epoch) -> RandomState-seed derivation
-        (its device term is 0 on one device)."""
-        return (seed * 1000003 + epoch * 641) % (2**31 - 1)
+    def _perm_seed(seed: int, epoch: int, device: int = 0) -> int:
+        """The JAX package's (seed, epoch[, device]) -> RandomState-seed
+        derivation."""
+        return (seed * 1000003 + epoch * 641 + device * 7919) % (2**31 - 1)
+
+    @staticmethod
+    def _permute_(arrs, delta):
+        for a in arrs:
+            if a is not None:
+                a.copy_(a.index_select(0, torch.as_tensor(delta, device=a.device)))
+        return arrs
 
     @classmethod
     def single_device(cls, n: int, seed: int) -> "EpochPermuter":
@@ -865,13 +1084,21 @@ class EpochPermuter:
         def make_perm(e):
             return np.random.RandomState(cls._perm_seed(seed, e)).permutation(n)
 
-        def permute(arrs, delta):
-            for a in arrs:
-                if a is not None:
-                    a.copy_(a.index_select(0, torch.as_tensor(delta, device=a.device)))
-            return arrs
+        return cls(make_perm, cls._permute_)
 
-        return cls(make_perm, permute)
+    @classmethod
+    def sharded(cls, local_n: int, ndev: int, seed: int, rank: int) -> "EpochPermuter":
+        """Permuter over one rank's shard of ``local_n`` rows of a dataset
+        sharded over ``ndev`` ranks: the rank's own permutation stream,
+        row ``rank`` of JAX's ``EpochPermuter.sharded`` (``:1195-1218``),
+        applied to its rows alone (no traffic between ranks)."""
+        if not 0 <= rank < ndev:
+            raise ValueError(f"rank {rank} of {ndev}")
+
+        def make_perm(e):
+            return np.random.RandomState(cls._perm_seed(seed, e, rank)).permutation(local_n)
+
+        return cls(make_perm, cls._permute_)
 
     def advance(self, e_now: int, arrs):
         """Bring ``arrs`` to epoch ``e_now``'s layout (no-op if there)."""

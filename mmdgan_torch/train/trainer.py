@@ -1,4 +1,4 @@
-"""Agent: the training runtime, single device (``mmdgan_tpu/train/trainer.py:45-840``).
+"""Agent: the training runtime (``mmdgan_tpu/train/trainer.py:45-840``).
 
 The loop around the train step: run folders, host-fed and
 device-resident training, checkpoints, guards, summaries, profiling.
@@ -26,7 +26,14 @@ device-resident training, checkpoints, guards, summaries, profiling.
 
 Labels ride in the batches (``{'x', 'y'}``) of both loops; a conditional
 model takes them, and ``sample_same_class`` draws each device-data batch
-from one class. Not ported: the mesh (``dp``, ROADMAP A15).
+from one class.
+
+Data parallelism (``dp``, a ``parallel.DataParallel``) threads through all
+three loops: the state is replicated from rank 0, every rank feeds its own
+rows (host-fed: its pipeline shard; device data: its shard of the
+dataset), checkpoints, summaries and ``_abnormal_save`` are written by
+rank 0 behind a barrier, and every rank restores. The guards read the
+replicated metrics, so every rank decides alike.
 """
 
 from __future__ import annotations
@@ -154,12 +161,39 @@ class Agent:
         self.nan_check_step = max(int(nan_check_step), 1)
         self.ckpt_folder, self.summary_folder, self.save_path = prepare_folder(
             filename, sub_folder=sub_folder, set_folder=output_dir)
-        self.writer = MetricWriter(self.summary_folder, use_tensorboard=use_tensorboard)
+        self.use_tensorboard = use_tensorboard
+        self._writer: Optional[MetricWriter] = None
+        self._dp = None     # the mesh of the running loop
         self.max_to_keep = max_to_keep
         self.param_hist_step = int(param_hist_step)
         self.handle_preemption = bool(handle_preemption)
         self._last_param_hist = None
         self._windows: Dict = {}
+
+    @property
+    def writer(self) -> MetricWriter:
+        """The run's metric writer, opened on first use (a mesh rank other
+        than 0 never opens it)."""
+        if self._writer is None:
+            self._writer = MetricWriter(self.summary_folder, use_tensorboard=self.use_tensorboard)
+        return self._writer
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes summaries: no mesh, or its rank 0."""
+        return self._dp is None or self._dp.is_main
+
+    def _use_mesh(self, dp, ts: TrainState, step: Optional[Callable] = None) -> TrainState:
+        """Enter a loop on ``dp`` (None: one device): the step must have
+        been built with it, and the state is replicated from rank 0."""
+        self._dp = dp
+        if dp is None:
+            if getattr(step, "dp", None) is not None:
+                raise ValueError("the step was built with a mesh: pass its dp to the Agent")
+            return ts
+        if step is not None:
+            dp.compile_step(step)
+        return dp.replicate(ts)
 
     # ------------------------------------------------------------------
     # summaries
@@ -194,7 +228,7 @@ class Agent:
         if not self.do_save:
             return
         step = int(ts.step) if step is None else int(step)
-        checkpoint.save(self.ckpt_folder, ts, step, self.max_to_keep)
+        checkpoint.save(self.ckpt_folder, ts, step, self.max_to_keep, dp=self._dp)
 
     def restore(self, ts: TrainState, step: Optional[int] = None) -> TrainState:
         """Write the checkpoint of ``step`` (the latest by default) into
@@ -237,6 +271,8 @@ class Agent:
         return vals, hists
 
     def _report(self, ts, step, vals, hists, steps_done, start, step_per_epoch, force_print):
+        if not self.is_main:
+            return
         self._write_query(step, vals, hists, ts)
         if self.print_loss or force_print:
             epoch = (step - 1) // max(step_per_epoch, 1)
@@ -266,6 +302,8 @@ class Agent:
         final_step = int(ts.step)
         if self.do_save:
             self.save(ts, final_step)
+        if not self.is_main:
+            return ts
         if summary_image_fn is not None:
             self.writer.images(final_step, "Ig", summary_image_fn(ts).cpu().numpy())
         duration = time.time() - start
@@ -282,6 +320,7 @@ class Agent:
         data_iter: Iterable[Dict],
         max_step: int,
         step_per_epoch: int,
+        dp=None,
         summary_image_fn: Optional[Callable] = None,
         model_description: Optional[str] = None,
         force_print: bool = False,
@@ -292,6 +331,9 @@ class Agent:
         :param train_step: from ``build_train_step``, or a function of its
             signature
         :param data_iter: yields host batches {'x': [B,H,W,C], 'y': ...}
+            (under a mesh, the rank's ``dp.local_batch_size(B)`` rows)
+        :param dp: the mesh the step was built with (``dp=`` of its
+            builder), or None for one device
         :param summary_image_fn: fn(ts) -> [N,H,W,C] images for the final
             summary (my_sngan.py:459-463)
         :param steps_per_call: K > 1 runs K steps per CUDA graph launch
@@ -299,12 +341,13 @@ class Agent:
         """
         if steps_per_call > 1 and self.debug_mode is not None:
             return self._train_multi(train_step, ts, data_iter, max_step, step_per_epoch,
-                                     summary_image_fn, steps_per_call, force_print)
+                                     summary_image_fn, steps_per_call, force_print, dp)
         if self.debug_mode is None:
             print(model_description or "Agent: debug_mode=None, nothing to run.")
             return ts
         if self.debug_mode:
             max_step = min(max_step, self.debug_step)
+        ts = self._use_mesh(dp, ts, train_step)
         if self.load_ckpt:
             ts = self.restore(ts)
 
@@ -356,7 +399,7 @@ class Agent:
         profiler.export_chrome_trace(os.path.join(self.summary_folder, "trace.json"))
 
     def _train_multi(self, train_step, ts, data_iter, max_step, step_per_epoch,
-                     summary_image_fn, k, force_print) -> TrainState:
+                     summary_image_fn, k, force_print, dp=None) -> TrainState:
         """K steps per CUDA graph launch (``graph_steps``), then the steps
         below one window singly (``mmdgan_tpu/train/trainer.py:396-507``).
         An imbalanced schedule runs in ``imbalanced_scan`` windows, whose
@@ -373,6 +416,7 @@ class Agent:
             self._windows[window] = (train_step, graph_steps(train_step, k) if iu is None
                                      else imbalanced_scan(train_step, k, iu))
         multi = self._windows[window][1]
+        ts = self._use_mesh(dp, ts, train_step)
         if self.load_ckpt:
             ts = self.restore(ts)
         dev = ts.step.device
@@ -434,6 +478,7 @@ class Agent:
         sampling: str = "uniform",
         sampling_seed: Optional[int] = None,
         micro_batches: int = 1,
+        dp=None,
     ) -> TrainState:
         """Training over a dataset resident in device memory: ``data``
         ({'x': [N,H,W,C] uint8 or float, 'y': [N, 1] int labels or None},
@@ -459,7 +504,14 @@ class Agent:
         ``shuffled_epochs`` each window gets its rows of ``class_schedule``
         (from ``sampling_seed``, regenerated from the step a resumed run
         starts at) as device data, and each class walks its own
-        without-replacement epochs, permuted on the device."""
+        without-replacement epochs, permuted on the device.
+
+        ``dp``: a mesh shards the dataset (``build_device_data_step``'s
+        ``with_mesh``): ``data`` holds this rank's rows (the multi-process
+        contract: each rank loads its own shard), each rank samples
+        ``batch_size / N`` of them per step; its class tables index its
+        rows, and shuffled epochs permute them by the rank's own stream
+        (``EpochPermuter.sharded``)."""
         if self.debug_mode is None:
             print("Agent: debug_mode=None, nothing to run.")
             return ts
@@ -474,6 +526,7 @@ class Agent:
         if sampling_seed is None:
             sampling_seed = seed
         dev = ts.step.device
+        ranks = 1 if dp is None else dp.size
         table = counts = None
         if sample_same_class:
             table, counts = same_class_tables(host_y, model.num_class)
@@ -482,16 +535,19 @@ class Agent:
             tkey = None if table is None else (table.tobytes(), counts.tobytes())
             key = (id(model), id(opt_dis), id(opt_gen), num_steps, batch_size, sampling,
                    micro_batches, sample_same_class, tkey,
-                   sampling_seed if scheduled else None)
+                   sampling_seed if scheduled else None, id(dp))
             if key not in self._windows:
-                self._windows[key] = ((model, opt_dis, opt_gen), build_device_data_step(
+                fn_ = build_device_data_step(
                     model, opt_dis, opt_gen, num_steps, batch_size,
                     same_class=sample_same_class, class_table=table, class_counts=counts,
                     sampling=sampling, sampler_seed=sampling_seed,
-                    micro_batches=micro_batches, device=dev))
+                    micro_batches=micro_batches, device=dev)
+                self._windows[key] = ((model, opt_dis, opt_gen, dp),
+                                      fn_ if dp is None else fn_.with_mesh(dp))
             return self._windows[key][1]
 
         fn = get_fn(k)
+        ts = self._use_mesh(dp, ts)
         if self.load_ckpt:
             ts = self.restore(ts)
         data_x = torch.tensor(np.asarray(data["x"]), device=dev)   # a copy: permuted in place
@@ -500,10 +556,12 @@ class Agent:
         start_step = int(ts.step)
         start = time.time()
         if shuffled and not scheduled:
-            n_batches = data_x.shape[0] // batch_size
+            n_batches = data_x.shape[0] // (batch_size // ranks)
             if n_batches < 1:
-                raise ValueError(f"{data_x.shape[0]} rows hold no batch of {batch_size}")
-            permuter = EpochPermuter.single_device(data_x.shape[0], sampling_seed)
+                raise ValueError(f"{data_x.shape[0]} rows hold no batch of {batch_size // ranks}")
+            permuter = (EpochPermuter.single_device(data_x.shape[0], sampling_seed)
+                        if dp is None else
+                        EpochPermuter.sharded(data_x.shape[0], ranks, sampling_seed, dp.rank))
             # a resumed run jumps straight to its epoch's layout
             permuter.advance(start_step // n_batches, [data_x, data_y])
         if max_step < k:

@@ -10,7 +10,8 @@ Saver's coverage. A file is written under a temporary name and renamed,
 so a reader sees all of it or nothing; the oldest are removed beyond
 ``max_to_keep``. ``restore_into`` writes a checkpoint into an existing
 TrainState in place, so CUDA graphs captured on that state stay valid.
-Reading the JAX package's orbax checkpoints is not ported.
+Under a mesh only rank 0 writes, behind a barrier, and every rank reads
+the same file. Reading the JAX package's orbax checkpoints is not ported.
 """
 
 from __future__ import annotations
@@ -58,16 +59,20 @@ def state_dict(ts: TrainState) -> Dict:
             "step": ts.step, "rng": ts.rng.get_state()}
 
 
-def save(ckpt_folder: str, ts: TrainState, step: int, max_to_keep: int = 2) -> str:
+def save(ckpt_folder: str, ts: TrainState, step: int, max_to_keep: int = 2, dp=None) -> str:
     """Write ``ts`` as the checkpoint of ``step``; keep the newest
-    ``max_to_keep``. Returns the file's path."""
-    os.makedirs(ckpt_folder, exist_ok=True)
+    ``max_to_keep``. Returns the file's path. With a mesh (``dp``) rank 0
+    writes the replicated state and every rank waits for it."""
     path = ckpt_path(ckpt_folder, step)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(state_dict(ts), tmp)
-    os.replace(tmp, path)
-    for old in list_ckpt_steps(ckpt_folder)[:-max_to_keep]:
-        os.remove(ckpt_path(ckpt_folder, old))
+    if dp is None or dp.is_main:
+        os.makedirs(ckpt_folder, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(state_dict(ts), tmp)
+        os.replace(tmp, path)
+        for old in list_ckpt_steps(ckpt_folder)[:-max_to_keep]:
+            os.remove(ckpt_path(ckpt_folder, old))
+    if dp is not None:
+        dp.barrier()
     return path
 
 

@@ -21,6 +21,7 @@ from mmdgan_torch.data.pipeline import ReadTFRecords
 from mmdgan_torch.data.prefetch import background, prefetch
 from mmdgan_torch.data.tfrecord import TFRecordReader, crc32c, np_to_tfrecords
 from mmdgan_torch.models.sngan import SNGan
+from mmdgan_torch.parallel import make_mesh_2d
 from mmdgan_torch.train.optim import multi_opt_config
 from mmdgan_torch.train.step import EpochPermuter, build_device_data_step
 
@@ -95,9 +96,10 @@ def test_uniform_draws_are_in_range_and_move():
 
 
 def test_unported_sampling_options_raise():
-    """The mesh still raises (ROADMAP A15); same-class sampling (ported)
-    raises without its class tables; a labelled dataset is sampled with
-    its labels."""
+    """The 2-D mesh and fsdp state sharding raise (ROADMAP A15b; the 1-D
+    mesh is ported: ``with_mesh(None)`` is the single-device window);
+    same-class sampling (ported) raises without its class tables; a
+    labelled dataset is sampled with its labels."""
     model = SNGan(ARCH, device="cpu")
     opt_d, opt_g = multi_opt_config([1e-3, 1e-3])
     with pytest.raises(ValueError, match="same_class_tables"):
@@ -106,8 +108,9 @@ def test_unported_sampling_options_raise():
     with pytest.raises(ValueError, match="micro-batches"):
         build_device_data_step(model, opt_d, opt_g, 2, B, micro_batches=3, device="cpu")
     fn = build_device_data_step(model, opt_d, opt_g, 2, B, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        fn.with_mesh(None)
+    assert fn.with_mesh(None).dp is None
+    with pytest.raises(NotImplementedError, match="A15b"):
+        make_mesh_2d(2, 1)
     data_y = torch.arange(N).reshape(N, 1)
     batch = fn.sampler(torch.arange(N, dtype=torch.float32).reshape(N, 1, 1, 1).expand(
         N, 8, 8, 1), data_y)(torch.Generator().manual_seed(0), torch.tensor(0))
@@ -176,6 +179,21 @@ def test_background_forwards_errors():
     assert next(it) == 1
     with pytest.raises(OSError, match="disk gone"):
         next(it)
+
+
+def test_background_close_waits_for_its_thread():
+    """Closing the iterator of an endless source ends its producer thread
+    before ``close`` returns (a thread still pinning a batch when the
+    process exits aborts it)."""
+    import itertools
+    import threading
+
+    before = set(threading.enumerate())
+    it = background(itertools.count(), 2)
+    assert next(it) == 0
+    (producer,) = set(threading.enumerate()) - before
+    it.close()
+    assert not producer.is_alive()
 
 
 def test_missing_tfrecord_file_raises(tmp_path):
