@@ -133,6 +133,31 @@ Phases, each fatal on failure:
    - 13d, ``python -m torch.distributed.run --standalone --nproc-per-node
      1 -m mmdgan_torch.experiments.cifar``, host-fed, a chunk with a
      checkpoint, then a resumed one; beside 13b.
+14. serving and sharding (``utils/export.py``, ``tools/``,
+   ``utils/compilation_cache.py``, the sharded state of
+   ``parallel/mesh.py``):
+   - 14a, this process: images/s of the full-width CIFAR-10 generator
+     (bf16) in-process and exported at batch 64, 256 and 1024, and of
+     hd512's at 16 and 64 (``tools/serving_bench.py``, CUDA events), the
+     seconds to export; the artifact against in-process generation,
+     bitwise in f32 (unconditional and conditional), within 2^-7 in bf16;
+     the bf16 artifact loaded in a fresh process that imports torch alone
+     (its seconds to the first images);
+   - 14b, a one-rank NCCL group: the CIFAR-10 rep b64 bf16 graphed window
+     on a ``shard_state(fsdp=True)`` state (gathers and reduce-scatters
+     captured): three profiled windows (1 + 2 kernel-means launches per
+     step, collectives per step, busy time, activities), steps/s beside
+     the non-mesh window in turns, one FSDP window bitwise equal to the
+     replicated mesh's under deterministic algorithms, and
+     ``export_generator(dp=)`` at the rank; beside it a cold nvcc build
+     into a new compilation cache, then a second process's cache hit;
+   - 14c, two gloo ranks sharing the card under fsdp: the narrow f32 rep
+     and rmb_gp steps equal one device within JAX's mesh bounds, the
+     gathered replicas bitwise identical, and the full-width CIFAR-10
+     state's persistent parameter + Adam bytes per rank against the
+     replicated layout's; 14d, four gloo ranks as a (2, 2) mesh, the
+     narrow rep steps likewise; beside them
+     ``python -m mmdgan_torch.tools.profile_step --arch cifar``.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -184,6 +209,7 @@ from mmdgan_torch.train.step import (  # noqa: E402
     init_train_state,
     same_class_tables,
 )
+from mmdgan_torch.tools.profile_step import window_timeline  # noqa: E402
 from mmdgan_torch.train.trainer import Agent  # noqa: E402
 
 BATCH, SCAN_K = 64, 16              # bench.py's cifar line
@@ -740,6 +766,10 @@ def _profiled_window(multi, ts, batches, what: str, per_step: dict = KERNEL_EVEN
 
 
 def _profile(multi, ts, batches, what: str) -> dict:
+    """One window under torch.profiler, read by ``profile_step.window_timeline``
+    (busy, union, span, activities, time and calls by kernel name, the
+    kernel-means launches, the host's ``nccl:`` events) and its traced
+    wall time per step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -748,25 +778,11 @@ def _profile(multi, ts, batches, what: str) -> dict:
         multi(ts, batches)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert kernels, f"the profiler recorded no device activity in the {what}"
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    covered, reach = 0, spans[0][0]
-    for lo, hi in spans:
-        covered += max(0, hi - max(lo, reach))
-        reach = max(reach, hi)
-    out = {"busy": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / SCAN_K,
-           "union": covered / 1e3 / SCAN_K, "span": (reach - spans[0][0]) / 1e3 / SCAN_K,
-           "wall": wall_ms / SCAN_K, "activities": len(kernels) / SCAN_K, "by_name": {},
-           "calls_by_name": {}}
-    for e in kernels:
-        out["by_name"][e.name] = out["by_name"].get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        out["calls_by_name"][e.name] = out["calls_by_name"].get(e.name, 0) + 1
-    for kernel in KERNEL_EVENTS:
-        out[kernel] = sum(kernel in e.name for e in kernels)
-    # the collectives the host issued (a replayed graph issues none)
-    out["nccl_ops"] = sum(e.device_type == torch.autograd.DeviceType.CPU
-                          and e.name.startswith("nccl:") for e in prof.events())
+    try:
+        out = window_timeline(prof, SCAN_K, torch.device("cuda"), tuple(KERNEL_EVENTS))
+    except RuntimeError as e:
+        raise AssertionError(f"{e} in the {what}") from None
+    out["wall"] = wall_ms / SCAN_K
     return out
 
 
@@ -2243,7 +2259,7 @@ def _wait_all(procs: list, timeout: int) -> list:
             text = log_file.read()
             logs.append(text)
             for line in text.splitlines():
-                if line.startswith("[mesh]") or line.startswith("[profile]"):
+                if line.startswith(("[mesh]", "[fsdp]", "[profile]")):
                     log(line)
             assert rc == 0, f"{what} exited {rc}:\n{text[-4000:]}"
     finally:
@@ -2313,17 +2329,421 @@ def run_mesh(card: str) -> list:
     return counted
 
 
+SERVE_BATCHES, SERVE_HD_BATCHES = (64, 256, 1024), (16, 64)
+SERVE_CALLS, SERVE_HD_CALLS = 64, 8
+SERVE_BF16_ATOL = 2.0 ** -7         # one bf16 step at 1.0; images lie in [-1, 1]
+FSDP_STEPS = 3                      # 14c/14d narrow steps, sharded ranks against one device
+FSDP_MIN_SIZE = 64                  # the narrow models' split: every leaf of 64 elements up
+
+LOAD_SCRIPT = """
+import json, sys, time
+import numpy as np
+import torch
+from torch.export.passes import move_to_device_pass
+z = torch.tensor(np.load(sys.argv[2]), device="cuda")     # CUDA up before the clock starts
+start = time.perf_counter()
+module = move_to_device_pass(torch.export.load(sys.argv[1]), torch.device("cuda", 0)).module()
+loaded = time.perf_counter()
+with torch.no_grad():
+    out = module(z)
+torch.cuda.synchronize()
+first = time.perf_counter()
+with torch.no_grad():
+    module(z)
+torch.cuda.synchronize()
+assert not [m for m in sys.modules if m.startswith("mmdgan")]
+np.save(sys.argv[3], out.float().cpu().numpy())
+print(json.dumps({"load_s": loaded - start, "first_call_s": first - loaded,
+                  "second_call_s": time.perf_counter() - first}))
+"""
+
+CACHE_SCRIPT = """
+import json, sys, time
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+from mmdgan_torch.ops import _build, cuda_mmd
+from mmdgan_torch.utils.compilation_cache import enable_compilation_cache
+enable_compilation_cache(sys.argv[2])
+_build.BUILD_DIR = Path(sys.argv[3])        # not the checkout's build/: measure the cache alone
+if sys.argv[4] == "hit":
+    _build._nvcc = None                     # a hit runs no compiler
+start = time.perf_counter()
+path = _build.build(cuda_mmd.SOURCE)
+cuda_mmd._library()
+print(json.dumps({"seconds": time.perf_counter() - start, "path": str(path)}))
+"""
+
+
+def _json_tail(text: str) -> dict:
+    return json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+
+
+def check_serving(dev, card: str, tmp: str) -> None:
+    """Phase 14a: the serving path on the card.
+    - ``serving_bench.bench``: images/s of the full-width CIFAR-10
+      generator (seed 0, bf16) in-process and exported, at SERVE_BATCHES,
+      and of hd512's at SERVE_HD_BATCHES, CUDA events over the calls;
+      the seconds to export each;
+    - the exported artifact against in-process generation on the card:
+      bitwise in float32 (the unconditional and the conditional CIFAR-10
+      generators), within SERVE_BF16_ATOL in bf16;
+    - the bf16 b64 artifact loaded in a fresh process that imports torch
+      alone: the seconds from ``torch.export.load`` to the first images,
+      which equal the in-process ones within the bf16 bound."""
+    from mmdgan_torch.tools import serving_bench
+    from mmdgan_torch.utils.export import export_generator, load_exported
+
+    records = (serving_bench.bench("cifar", list(SERVE_BATCHES), dev, calls=SERVE_CALLS)
+               + serving_bench.bench("hd512", list(SERVE_HD_BATCHES), dev,
+                                     calls=SERVE_HD_CALLS))
+    for r in records:
+        (b, model_ips), = r["model_img_per_sec"].items()
+        export_ips = r["export_img_per_sec"][b]
+        log(f"[serving] {r['arch']} b{b} bf16: in-process {model_ips:.1f} images/s, exported "
+            f"{export_ips:.1f} ({export_ips / model_ips:.3f}x; in turns "
+            f"{r['turns']['model'][0]:.1f}, {r['turns']['export'][0]:.1f}, "
+            f"{r['turns']['export'][1]:.1f}, {r['turns']['model'][1]:.1f}); export "
+            f"{r['export_s']:.2f} s; card: {card}")
+    z = torch.randn(BATCH, 128, generator=torch.Generator().manual_seed(5))
+    errs = {}
+    for name, dtype, num_class in (("f32", torch.float32, 0), ("f32 conditional",
+                                                                torch.float32, NUM_CLASS),
+                                   ("bf16", torch.bfloat16, 0)):
+        model = SNGan(cifar_architecture(conditional=num_class >= 2), num_class=num_class,
+                      loss_type="rep", compute_dtype=dtype)
+        params, state, _ = model.init(0)
+        y = (torch.arange(BATCH).remainder(NUM_CLASS).reshape(BATCH, 1).int()
+             if num_class else None)
+        path = os.path.join(tmp, f"serve_{dtype}_{num_class}.pt2")
+        export_generator(model, params, state, BATCH, path)
+        fn = load_exported(path)
+        zz = z.to(dev)
+        got = fn(zz) if y is None else fn(zz, y)
+        want = model.generate(params, state, code_batch={"x": zz, "y": y})
+        errs[name] = float((got - want).abs().max())
+        if dtype == torch.float32:
+            assert torch.equal(got, want), f"{name}: the artifact differs by {errs[name]:.3e}"
+        else:
+            assert errs[name] <= SERVE_BF16_ATOL, (name, errs[name])
+            np.save(os.path.join(tmp, "z.npy"), z.numpy())
+            proc = subprocess.run([sys.executable, "-c", LOAD_SCRIPT, path,
+                                   os.path.join(tmp, "z.npy"), os.path.join(tmp, "out.npy")],
+                                  capture_output=True, text=True, timeout=300, cwd=tmp)
+            assert proc.returncode == 0, proc.stderr[-3000:]
+            fresh_times = _json_tail(proc.stdout)
+            fresh = float(np.abs(np.load(os.path.join(tmp, "out.npy"))
+                                 - want.float().cpu().numpy()).max())
+            assert fresh <= SERVE_BF16_ATOL, fresh
+    log(f"[serving] the artifact against in-process generation on the card, full-width "
+        f"CIFAR-10 b{BATCH}: f32 bitwise ({errs['f32']:.1e}), f32 conditional bitwise "
+        f"({errs['f32 conditional']:.1e}), bf16 max |diff| {errs['bf16']:.3e} (bound "
+        f"{SERVE_BF16_ATOL}); the bf16 artifact in a fresh process importing torch alone, "
+        f"CUDA up first: torch.export.load and the move to the card "
+        f"{fresh_times['load_s']:.3f} s, the first call {fresh_times['first_call_s']:.3f} s, "
+        f"the second {fresh_times['second_call_s']:.4f} s, max |diff| {fresh:.3e}; card: "
+        f"{card}")
+
+
+def _cache_process(tmp: str, kind: str) -> subprocess.Popen:
+    """A process that builds the kernels with the compilation cache in
+    ``tmp/cache`` (and an empty ``build/``): ``cold`` runs nvcc, ``hit``
+    must not."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, "-c", CACHE_SCRIPT, repo,
+                             os.path.join(tmp, "cache"), os.path.join(tmp, "no_build"), kind],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=tmp)
+
+
+def _cache_seconds(proc: subprocess.Popen, kind: str) -> dict:
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, f"cache {kind}: {err[-3000:]}"
+    return _json_tail(out)
+
+
+def check_fsdp_main_path(dp, card: str, tmp: str) -> list:
+    """Phase 14b, one NCCL rank: the full-width CIFAR-10 rep b64 bf16 main
+    path on a state sharded by ``shard_state(fsdp=True)`` (default
+    ``min_size``), graphed K=16 with the gathers and reduce-scatters
+    captured:
+    - three profiled windows (the eager warm-up, the capture's replay, a
+      replay): 1 + 2 kernel-means launches per step in each, collectives
+      per step in the eager window, busy time, activities, idle share;
+    - steps/s of the non-mesh and the FSDP window in turns (plain, fsdp,
+      fsdp, plain);
+    - under deterministic algorithms one FSDP window against one window
+      of the replicated mesh from the same state, fed the same z: the
+      state and the metrics bitwise (at one rank the gather and the
+      reduce-scatter are copies), the gradient norms within rtol 1e-5
+      (the sharded norm sums the shards' squares, a rounding apart);
+    - ``export_generator(dp=)`` of the gathered generator at this rank:
+      its rows equal in-process generation within the bf16 bound.
+    Returns the profiler's kernel-means counts."""
+    from mmdgan_torch.utils.export import export_generator, load_exported
+
+    dev = dp.device
+    meshed = lambda model, od, og, k, capture=True: build_multi_step(  # noqa: E731
+        model, od, og, k, capture=capture, dp=dp)
+    model, ts, multi, batches = main_path_setup(dev, "rep", make_multi=meshed)
+    template = copy_state(ts)
+    ts = dp.shard_state(ts, fsdp=True)
+    assert dp._is_fsdp_layout(ts) and ts.layout.sharded_leaves > 0
+    reset_counters()
+    profs = [_profiled_window(multi, ts, batches, f"fsdp window {i}") for i in range(3)]
+    assert (multi.graphs.eager, multi.graphs.captures) == (1, 1), (
+        multi.graphs.eager, multi.graphs.captures)
+    assert_counted("fsdp main path", 2)
+    counted = [sum(p[k] for p in profs) for k in KERNEL_EVENTS]
+    collectives = profs[0]["nccl_ops"] / SCAN_K
+    copies, copies_ms = _device_calls(profs[-1], "memcpy")
+    _, ts_plain, plain, _ = main_path_setup(dev, "rep")
+    rates = {}
+    for name, drive, state in (("plain", plain, "p"), ("fsdp", multi, "f"),
+                               ("fsdp again", multi, "f"), ("plain again", plain, "p")):
+        if state == "p":
+            ts_plain, m, rates[name] = timed_windows(drive, ts_plain, batches)
+        else:
+            ts, m, rates[name] = timed_windows(drive, ts, batches)
+        assert all(torch.isfinite(v).all() for v in m.values()), name
+    plain_prof = _profiled_window(plain, ts_plain, batches, "non-mesh replay")
+    counted = [n + plain_prof[k] for n, k in zip(counted, KERNEL_EVENTS)]
+    plain_copies, plain_copies_ms = _device_calls(plain_prof, "memcpy")
+    fsdp_sps = (rates["fsdp"] + rates["fsdp again"]) / 2
+    plain_sps = (rates["plain"] + rates["plain again"]) / 2
+    log(f"[fsdp] 14b cifar10 rep b{BATCH} bf16, shard_state(fsdp=True) at 1 NCCL rank "
+        f"({ts.layout.sharded_leaves} leaves split), graphed K={SCAN_K}: {rates['fsdp']:.2f} / "
+        f"{rates['fsdp again']:.2f} steps/s against the non-mesh window's {rates['plain']:.2f} / "
+        f"{rates['plain again']:.2f} in turns ({fsdp_sps / plain_sps:.3f}x; "
+        f"{MEASURE_CALLS * SCAN_K} steps each); {collectives:g} NCCL collectives per step issued "
+        f"in the eager window; a replay: {copies:g} device copies/step ({copies_ms:.5f} ms) "
+        f"against {plain_copies:g} ({plain_copies_ms:.5f} ms), device busy "
+        f"{profs[-1]['union']:.4f} ms/step against {plain_prof['union']:.4f}, idle "
+        f"{100 * (1 - profs[-1]['union'] / profs[-1]['span']):.1f}% of the span (non-mesh "
+        f"{100 * (1 - plain_prof['union'] / plain_prof['span']):.1f}%), "
+        f"{profs[-1]['activities']:.0f} activities/step against {plain_prof['activities']:.0f}, "
+        f"kernel means {profs[-1]['kernel_means_fwd'] // SCAN_K}+"
+        f"{profs[-1]['kernel_means_bwd'] // SCAN_K} per step in each of 3 profiled windows; "
+        f"card: {card}")
+    _log_profile(profs[-1], 1e3 / fsdp_sps, "fsdp cifar10 rep (a replay)")
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    codes = {"x": torch.tensor(np.random.RandomState(9).randn(
+        SCAN_K, BATCH, 128).astype(np.float32), device=dev)}
+    opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ends = []
+            for fsdp in (True, False):
+                state = dp.shard_state(copy_state(template), fsdp=fsdp)
+                state, m = build_multi_step(model, opt_d, opt_g, SCAN_K, dp=dp)(
+                    state, batches, code_batches=codes)
+                whole = state.layout.gathered(state) if fsdp else state
+                norms = {k: m.pop(k) for k in ("grad_norm_dis", "grad_norm_gen")}
+                ends.append((_end_state(whole, m), norms))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    differ = _differ(ends[0][0], ends[1][0])
+    assert differ == 0, f"fsdp: {differ} tensors differ from the replicated mesh window"
+    for k in ends[0][1]:
+        torch.testing.assert_close(ends[0][1][k], ends[1][1][k], rtol=1e-5, atol=0)
+    whole = ts.layout.gathered(ts)
+    path = export_generator(model, whole.params, whole.net_state, BATCH,
+                            os.path.join(tmp, "dp.pt2"), dp=dp)
+    z = torch.randn(BATCH, 128, generator=torch.Generator().manual_seed(6)).to(dev)
+    got = load_exported(path)(dp.local_rows(z))
+    want = model.generate(whole.params, whole.net_state, code_batch={"x": z})
+    err = float((got - want[:got.shape[0]]).abs().max())
+    assert got.shape[0] == dp.local_batch_size(BATCH) and err <= SERVE_BF16_ATOL, err
+    log(f"[fsdp] 14b under deterministic algorithms one FSDP window equals one window of the "
+        f"replicated mesh from the same state, fed the same z, bitwise ({len(ends[0][0])} "
+        f"tensors, the gradient norms within rtol 1e-5); export_generator(dp=) at 1 NCCL "
+        f"rank: {got.shape[0]} rows, max |diff| "
+        f"{err:.3e} against in-process generation (bound {SERVE_BF16_ATOL})")
+    return counted
+
+
+def state_bytes(ts) -> int:
+    """Bytes of the parameters and optimizer slots a rank keeps between
+    steps, summed from the state's tensors (not from the allocator)."""
+    slots = [t for o in (ts.opt_state_dis, ts.opt_state_gen) for t in o.tensors()[1:]]
+    return sum(t.numel() * t.element_size() for t in tree_leaves(ts.params) + slots)
+
+
+def sharded_gloo_rank(rank: int, world: int, store: str, out: str, card: str,
+                      layout: str) -> None:
+    """Phase 14c (``layout`` 'fsdp', two ranks) or 14d ('2d', four ranks as a
+    (2, 2) mesh), gloo ranks sharing the card, cuDNN off as in 13b: the
+    narrow f32 model's rep (and, under fsdp, rmb_gp) steps on a state
+    sharded with ``min_size`` FSDP_MIN_SIZE, FSDP_STEPS SGD steps at a
+    global batch of BATCH on RandomState(7)'s batches, z and penalty
+    weights, TF32 off; rank 0 holds the gathered end state to the
+    single-device step within JAX's mesh bounds (losses rtol 2e-4 / atol
+    1e-5, parameters rtol 2e-3 / atol 1e-6). Under fsdp, the full-width
+    CIFAR-10 state's persistent parameter and Adam bytes on this rank,
+    sharded and replicated. Each rank saves its gathered end state for the
+    bitwise comparison."""
+    from mmdgan_torch.parallel.mesh import make_mesh_2d
+
+    torch.backends.cudnn.enabled = False
+    dp = _mesh_dp("gloo", rank, world, store)
+    if layout == "2d":
+        dp = type(dp)(make_mesh_2d(2, world // 2), device="cuda:0")
+    rng = np.random.RandomState(7)
+    x = rng.randn(FSDP_STEPS, BATCH, 32, 32, 3).clip(-1, 1).astype(np.float32)
+    z = rng.randn(FSDP_STEPS, BATCH, 128).astype(np.float32)
+    uni = rng.uniform(size=(FSDP_STEPS, BATCH, 1, 1, 1)).astype(np.float32)
+    saved, worst, split = {}, {}, {}
+
+    def run(loss: str, mesh) -> tuple:
+        model = SNGan(narrow_architecture(), loss_type=loss, compute_dtype=torch.float32,
+                      device=dp.device)
+        opt_d, opt_g = multi_opt_config([1e-2, 1e-2], optimizer="sgd")
+        ts = init_train_state(model, 0, opt_d, opt_g, device=dp.device)
+        if mesh is not None:
+            ts = mesh.shard_state(ts, min_size=FSDP_MIN_SIZE, fsdp=layout == "fsdp")
+            split[loss] = ts.layout.sharded_leaves
+        step = build_train_step(model, opt_d, opt_g, device=dp.device, dp=mesh)
+        losses = []
+        for k in range(FSDP_STEPS):
+            rows = x[k] if mesh is None else mesh.local_rows(torch.tensor(x[k]))
+            ts, m = step(ts, {"x": rows}, code_batch={"x": z[k]},
+                         uni=uni[k] if loss == "rmb_gp" else None)
+            losses.append([m["loss_gen"].item(), m["loss_dis"].item()])
+        return (ts if mesh is None else ts.layout.gathered(ts)), np.asarray(losses)
+
+    for loss in ("rep", "rmb_gp") if layout == "fsdp" else ("rep",):
+        ts, losses = tf32_off(lambda: run(loss, dp))
+        saved[loss] = [t.detach().cpu() for t in ts.tensors()] + [ts.rng.get_state()]
+        if rank == 0:
+            ts1, losses1 = tf32_off(lambda: run(loss, None))
+            np.testing.assert_allclose(losses, losses1, rtol=2e-4, atol=1e-5, err_msg=loss)
+            n_state = len(tree_leaves(ts1.params)) + len(tree_leaves(ts1.net_state))
+            for a, b in zip(saved[loss][:n_state], ts1.tensors()[:n_state]):
+                np.testing.assert_allclose(a.numpy(), b.detach().cpu().numpy(), rtol=2e-3,
+                                           atol=1e-6, err_msg=loss)
+            worst[loss] = float(np.max(np.abs(losses - losses1)
+                                       / np.maximum(np.abs(losses1), 1e-6)))
+    if layout == "fsdp":
+        model = SNGan(cifar_architecture(), loss_type="rep")
+        opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+        full = init_train_state(model, 0, opt_d, opt_g)
+        replicated = state_bytes(full)
+        sharded = dp.shard_state(full, fsdp=True)
+        saved["bytes"] = (state_bytes(sharded), replicated, sharded.layout.sharded_leaves,
+                          len(tree_leaves(sharded.params)))
+    torch.save(saved, os.path.join(out, f"{layout}{rank}.pt"))
+    if rank == 0:
+        what = ("14c two gloo ranks, shard_state(fsdp=True)" if layout == "fsdp" else
+                f"14d four gloo ranks as a (2, {world // 2}) mesh, state split over 'model'")
+        log(f"[fsdp] {what}, sharing the card, narrow f32, {FSDP_STEPS} SGD steps at a global "
+            f"batch of {BATCH}: " + ", ".join(
+                f"{loss} ({split[loss]} leaves split) equals the single-device step within "
+                f"JAX's mesh bounds (largest relative loss gap {gap:.2e})"
+                for loss, gap in worst.items()) + f"; card: {card}")
+    dp.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def fsdp_nccl_rank(store: str, out: str, card: str) -> None:
+    """Phase 14b in one process holding a one-rank NCCL group; writes the
+    kernel-means counts."""
+    dp = _mesh_dp("nccl", 0, 1, store)
+    counted = check_fsdp_main_path(dp, card, out)
+    with open(os.path.join(out, "fsdp.json"), "w") as f:
+        json.dump(counted, f)
+    torch.distributed.destroy_process_group()
+
+
+def run_serving_and_sharding(dev, card: str) -> list:
+    """Phase 14: 14a serving in this process, then 14b's NCCL rank alone on
+    the card (both time things; a cold nvcc build into a new compilation
+    cache runs on the host beside 14b, then a cache hit), then the step
+    profiler, 14c's two gloo ranks and 14d's four side by side; every
+    process ends before this returns. Returns 14b's kernel-means counts."""
+    me = os.path.abspath(__file__)
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_serving(dev, card, tmp)
+        log(f"[timing] 14a serving {time.perf_counter() - start:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        cold = _cache_process(tmp, "cold")   # nvcc on the host, beside 14b
+        try:
+            _wait_all([("14b NCCL rank", *_mesh_process(
+                [sys.executable, me, "--mesh-rank", "fsdp-nccl", "0", "1",
+                 os.path.join(tmp, "nccl"), tmp, card], os.path.join(tmp, "nccl.log")))],
+                timeout=400)
+        finally:
+            builds = {"cold": _cache_seconds(cold, "cold")}
+        builds["hit"] = _cache_seconds(_cache_process(tmp, "hit"), "hit")
+        assert builds["cold"]["path"] == builds["hit"]["path"]
+        assert builds["hit"]["path"].startswith(os.path.join(tmp, "cache"))
+        log(f"[cache] {cuda_mmd.SOURCE}: a cold nvcc build into a new compilation cache "
+            f"{builds['cold']['seconds']:.2f} s (beside 14b), a second process with the same "
+            f"cache {builds['hit']['seconds']:.4f} s (nvcc disabled in it); card: {card}")
+        with open(os.path.join(tmp, "fsdp.json")) as f:
+            counted = json.load(f)
+        log(f"[timing] 14a-14b {time.perf_counter() - start:.1f} s")
+        procs = [("14 profile_step", *_mesh_process(
+            [sys.executable, "-m", "mmdgan_torch.tools.profile_step", "--arch", "cifar",
+             "--calls", "2", "--top", "5"], os.path.join(tmp, "profile.log")))]
+        for layout, world in (("fsdp", 2), ("2d", 4)):
+            procs += [(f"14 {layout} gloo rank {r}", *_mesh_process(
+                [sys.executable, me, "--mesh-rank", f"{layout}-gloo", str(r), str(world),
+                 os.path.join(tmp, layout), tmp, card],
+                os.path.join(tmp, f"{layout}{r}.log"))) for r in range(world)]
+        logs = _wait_all(procs, timeout=400)
+        top = [ln for ln in logs[0].splitlines() if ln.startswith("|") and "kernel" not in ln
+               and not ln.startswith("|---")]
+        assert top and "steps/s unprofiled" in logs[0], logs[0][-3000:]
+        log(f"[profile_step] python -m mmdgan_torch.tools.profile_step --arch cifar --calls 2 "
+            f"(beside 14c/14d's gloo ranks): top kernel {top[0]}; "
+            + [ln.strip() for ln in logs[0].splitlines() if "steps/s unprofiled" in ln][0])
+        for layout, world in (("fsdp", 2), ("2d", 4)):
+            ranks = [torch.load(os.path.join(tmp, f"{layout}{r}.pt"), weights_only=False)
+                     for r in range(world)]
+            for loss in [k for k in ranks[0] if k != "bytes"]:
+                for r in range(1, world):
+                    differ = [i for i, (a, b) in enumerate(zip(ranks[0][loss], ranks[r][loss]))
+                              if not torch.equal(a, b)]
+                    assert not differ, f"14 {layout} {loss}: tensors {differ} differ, rank {r}"
+            if layout == "fsdp":
+                sizes = [rk["bytes"] for rk in ranks]
+                log(f"[fsdp] 14c full-width CIFAR-10 under shard_state(fsdp=True) at 2 gloo "
+                    f"ranks ({sizes[0][2]} of {sizes[0][3]} parameter leaves split): persistent "
+                    f"parameter + Adam bytes per rank {sizes[0][0]} / {sizes[1][0]} against "
+                    f"{sizes[0][1]} replicated ({sizes[0][0] / sizes[0][1]:.4f}x)")
+            log(f"[fsdp] 14 {layout}: the {world} gloo ranks' gathered end states are bitwise "
+                f"identical; card: {card}")
+    return counted
+
+
 def mesh_rank_main(argv: list) -> int:
-    """``chip_smoke.py --mesh-rank {nccl,gloo} RANK WORLD STORE OUT CARD``:
-    one rank of phase 13 (run by ``run_mesh``)."""
+    """``chip_smoke.py --mesh-rank KIND RANK WORLD STORE OUT CARD``: one
+    rank of phase 13 (``nccl``, ``gloo``; run by ``run_mesh``) or of phase
+    14 (``fsdp-nccl``, ``fsdp-gloo``, ``2d-gloo``; run by
+    ``run_serving_and_sharding``)."""
     kind, rank, world, store, out, card = argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
     _build.build(cuda_mmd.SOURCE)
     if kind == "nccl":
         mesh_nccl_rank(store, out, card)
-    else:
+    elif kind == "gloo":
         mesh_gloo_rank(int(rank), int(world), store, out, card)
+    elif kind == "fsdp-nccl":
+        fsdp_nccl_rank(store, out, card)
+    else:
+        sharded_gloo_rank(int(rank), int(world), store, out, card, kind.split("-")[0])
     return 0
 
 
@@ -2389,10 +2809,12 @@ def main() -> int:
     phase("12 card vs CPU", lambda: check_catalogue_on_card(dev))
     phase("12 cli", check_conditional_cli)
     mesh_launches = phase("13 mesh", lambda: run_mesh(card))
+    fsdp_launches = phase("14 serving and sharding", lambda: run_serving_and_sharding(dev, card))
     for i, kernel in enumerate(kernels):
         kernel["launches"] = (sum(launches[i] for launches, _ in runs.values()) + loss_launches[i]
                               + sum(f[i] for f in family_launches) + hd_launches[i]
-                              + eval_launches[i] + cond_launches[i] + mesh_launches[i])
+                              + eval_launches[i] + cond_launches[i] + mesh_launches[i]
+                              + fsdp_launches[i])
 
     log(f"[timing] seconds by phase: {json.dumps(seconds)}")
     log(json.dumps({"kernels": kernels}))

@@ -120,7 +120,9 @@ def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
                    help="exact gradient accumulation: run each batch in M micro-batch "
                         "chunks at 1/M activation memory (the hd configurations)")
     p.add_argument("--compilation-cache", default="", metavar="DIR",
-                   help="persistent compilation cache (not ported: ROADMAP A16)")
+                   help="persistent compilation cache directory: a restarted process "
+                        "(resume, next chunk, serving worker) loads the built CUDA "
+                        "kernels instead of running nvcc (utils/compilation_cache.py)")
     p.add_argument("--device", default="cuda",
                    help="the device to train on: cuda (default) or cpu")
     return p
@@ -131,7 +133,6 @@ def refuse_unported(args) -> None:
     unported = [
         (args.use_pallas, "--use-pallas selects the TPU's Pallas kernel; the port runs "
                           "its CUDA kernel-means kernel (ROADMAP B1)"),
-        (bool(args.compilation_cache), "--compilation-cache is not ported yet (ROADMAP A16)"),
     ]
     for refused, why in unported:
         if refused:
@@ -172,6 +173,10 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
     if args.inception_pb:
         cfg = cfg.with_updates(inception_pb=args.inception_pb)
     set_config(cfg)
+    if args.compilation_cache:
+        from mmdgan_torch.utils.compilation_cache import enable_compilation_cache
+
+        print(f"Compilation cache: {enable_compilation_cache(args.compilation_cache)}")
     use_device_data = args.device_dataset and not args.synthetic_data
     # launched by torchrun: the host-fed path is data-parallel
     dp = DataParallel(device=args.device) if "WORLD_SIZE" in os.environ else None

@@ -35,6 +35,15 @@ it. Every rank issues the same collectives in the same order: the step
 runs the same code on every rank, and the autograd engine orders a
 graph's nodes by their creation.
 
+A 2-D mesh (``mesh.make_mesh_2d``) runs these batch reductions over its
+data axis; averages and rank 0's state span every rank of the mesh
+(``dp.world``), so the ranks of a model group, which hold the same rows,
+stay bitwise alike. A sharded state (``mesh.StateLayout``) adds the
+all-gather of each network's flat shard at step entry and the
+reduce-scatter of its flat gradient, over the axis the state is sharded
+on (``data`` under fsdp, ``model`` on a 2-D mesh), then, on a 2-D mesh, a
+sum of the shard over ``data``.
+
 Transport: NCCL runs on the device and its collectives are captured in
 a CUDA graph (the communicator must exist before the first capture:
 ``DataParallel`` issues one collective when it is made). gloo runs on
@@ -49,10 +58,21 @@ collective.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, List, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
+
+
+class Axis(NamedTuple):
+    """The ranks of one mesh axis (or of the whole mesh) as the functions
+    here take them: a ``DataParallel`` has the same four attributes, for
+    its data axis."""
+
+    group: Any
+    backend: str
+    size: int
+    rank: int
 
 
 def _via_host(t: torch.Tensor, dp) -> bool:
@@ -172,17 +192,51 @@ def batch_moments(x: torch.Tensor, dims: Sequence[int], dp):
 
 
 def average_flat(tensors: List[torch.Tensor], dp) -> List[torch.Tensor]:
-    """``tensors`` averaged over the ranks through one flat buffer: one
-    collective whatever their number (the gradients of one network)."""
+    """``tensors`` averaged over every rank of the mesh through one flat
+    buffer: one collective whatever their number (the gradients of one
+    network). On a 2-D mesh the ranks of a model group hold equal copies,
+    so this is the average over the data axis."""
+    world = dp.world
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    flat = all_reduce_raw(flat, dp).div_(dp.size)
+    flat = all_reduce_raw(flat, world).div_(world.size)
     return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def from_rank0(tensors: List[torch.Tensor], dp) -> List[torch.Tensor]:
-    """Rank 0's ``tensors`` on every rank, through one flat buffer."""
-    flat = broadcast_raw_(torch.cat([t.detach().reshape(-1) for t in tensors]), dp)
+    """Rank 0's ``tensors`` on every rank of the mesh, through one flat
+    buffer."""
+    flat = broadcast_raw_(torch.cat([t.detach().reshape(-1) for t in tensors]), dp.world)
     return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def gather_shards(shard: torch.Tensor, axis, targets: List[torch.Tensor],
+                  offsets: List[int]) -> None:
+    """The step-entry all-gather of a sharded state: ``shard`` is this
+    rank's flat shard of a network ([L], rank order), and leaf j of the
+    network, ``targets[j]`` (full size), is the ``axis`` ranks' pieces
+    ``[offsets[j], offsets[j] + targets[j].numel() / size)`` of their
+    shards, in rank order. Writes the targets in place (no autograd)."""
+    whole = all_gather_raw(shard, axis).view(axis.size, -1)
+    with torch.no_grad():
+        torch._foreach_copy_([t.view(axis.size, -1) for t in targets],
+                             [whole[:, o:o + t.numel() // axis.size]
+                              for t, o in zip(targets, offsets)])
+
+
+def scatter_gradients(grads: List[torch.Tensor], offsets: List[int], length: int, axis,
+                      dp) -> torch.Tensor:
+    """The rank's flat shard ([``length``]) of the gradient averaged over
+    the mesh: the full-size ``grads`` laid out shard-major (the inverse of
+    ``gather_shards``), reduce-scattered over ``axis``, then, when
+    ``axis`` is a 2-D mesh's model axis, summed over the data axis, and
+    divided by the mesh's rank count."""
+    flat = grads[0].new_empty((axis.size, length))
+    torch._foreach_copy_([flat[:, o:o + g.numel() // axis.size] for g, o in zip(grads, offsets)],
+                         [g.reshape(axis.size, -1) for g in grads])
+    shard = reduce_scatter_raw(flat.view(-1), axis)
+    if dp.world.size != axis.size:
+        shard = all_reduce_raw(shard, dp)
+    return shard.div_(dp.world.size)
 
 
 def gathered_mean(t: torch.Tensor, dp=None) -> torch.Tensor:
@@ -193,6 +247,7 @@ def gathered_mean(t: torch.Tensor, dp=None) -> torch.Tensor:
     return all_reduce_raw(t.sum(), dp) / (t.numel() * dp.size)
 
 
-__all__ = ["all_gather", "all_reduce", "all_gather_raw", "all_reduce_raw",
+__all__ = ["Axis", "all_gather", "all_reduce", "all_gather_raw", "all_reduce_raw",
            "broadcast_raw_", "reduce_scatter_raw", "average_flat", "batch_mean",
-           "batch_moments", "from_rank0", "gathered_mean"]
+           "batch_moments", "from_rank0", "gathered_mean", "gather_shards",
+           "scatter_gradients"]

@@ -5,7 +5,7 @@ share."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, Iterator, List
 
 import torch
 
@@ -24,6 +24,13 @@ def tree_leaves(tree: Dict) -> List[torch.Tensor]:
 
 def tree_map(fn: Callable, tree: Dict) -> Dict:
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def tree_rebuild(tree: Dict, leaves: Iterator) -> Dict:
+    """``tree``'s structure with its leaves taken from ``leaves`` in
+    ``tree_leaves`` order."""
+    return {k: tree_rebuild(tree[k], leaves) if isinstance(tree[k], dict) else next(leaves)
+            for k in sorted(tree)}
 
 
 def copy_tree_(dst: Dict, src: Dict) -> None:
@@ -49,7 +56,9 @@ class TrainState:
     TrainState therefore replays on it, and only on it. Parameters are
     made leaf tensors that require grad. ``step`` is a 0-d int32 tensor on
     the parameters' device (an int is converted); the host reads it only
-    where it syncs."""
+    where it syncs. A state sharded over a mesh (``DataParallel.shard_state``)
+    holds each split parameter and slot as the rank's flat piece of it,
+    and its ``layout`` says which."""
 
     params: Dict[str, Any]        # {'gen': ..., 'dis': ...}
     net_state: Dict[str, Any]     # SN power vectors + BN statistics
@@ -58,6 +67,7 @@ class TrainState:
     opt_state_gen: Any
     step: torch.Tensor
     rng: torch.Generator          # draws z when no code batch is given
+    layout: Any = None            # a sharded state's parallel.mesh.StateLayout
 
     def __post_init__(self):
         leaves = tree_leaves(self.params)

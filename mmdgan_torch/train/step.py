@@ -44,6 +44,14 @@ flat buffer, every step, whatever ``do_dis``/``do_gen`` are (so a captured
 window issues a fixed sequence of collectives). Without ``dp`` no
 collective runs. The device-data step shards the dataset
 (``with_mesh``).
+
+A state sharded over the mesh (``DataParallel.shard_state``: fsdp, or a
+2-D mesh's model axis) runs the gather-at-entry schedule in every step
+(``parallel.mesh.StateLayout``): the weights all-gathered into full-size
+buffers made once, the step computed as above, each network's gradient
+reduce-scattered, and each rank's optimizer updating its own shards of
+the parameters and slots. The collectives are the same every step, so a
+window over an NCCL mesh captures them as it captures the others.
 """
 
 from __future__ import annotations
@@ -103,6 +111,32 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
 
 
+def _entry_params(ts: TrainState, dp) -> Dict:
+    """The whole parameters the step computes with: the state's own, or,
+    for a sharded state, the weights all-gathered at step entry."""
+    layout = ts.layout
+    if layout is None:
+        return ts.params
+    if layout.dp is not dp:
+        raise ValueError("the state is sharded on another mesh than the step was built with")
+    return layout.gather(ts)
+
+
+def _mean_grads(ts: TrainState, net: str, grads: List[torch.Tensor], dp) -> List[torch.Tensor]:
+    """A network's gradients as its state leaves take them: as computed
+    without a mesh; averaged over the ranks with one; a sharded state's
+    split leaves get the rank's shard of the average."""
+    if ts.layout is not None:
+        return ts.layout.reduce_grads(net, grads)
+    return grads if dp is None else average_flat(grads, dp)
+
+
+def _grad_norm(ts: TrainState, net: str, grads: List[torch.Tensor]) -> torch.Tensor:
+    if ts.layout is not None:
+        return ts.layout.global_norm(net, grads)
+    return _global_norm(grads)
+
+
 def _update(opt: Optimizer, do, leaves, grads, opt_state) -> None:
     """One optimizer update gated by ``do``: a Python bool by ``if``, a 0-d
     bool tensor (a flag on the device) by ``Optimizer.gated_update_``."""
@@ -152,19 +186,18 @@ def build_train_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         x = torch.as_tensor(data_batch["x"], device=dev)
         x = to_nchw(decode_image_batch({"x": x})["x"])
         y = model.as_labels(data_batch.get("y"), x.shape[0])
+        params = _entry_params(ts, dp)
         gen_x, gen_state, codes = model.gen_stage(
-            ts.params["gen"], ts.net_state, x.shape[0], ts.rng, code_batch, data_y=y, dp=dp)
+            params["gen"], ts.net_state, x.shape[0], ts.rng, code_batch, data_y=y, dp=dp)
         loss_gen, loss_dis, dis_state, new_loss_state, aux = model.dis_stage(
-            ts.params["dis"], gen_x, ts.net_state, ts.loss_state, x, generator=ts.rng,
+            params["dis"], gen_x, ts.net_state, ts.loss_state, x, generator=ts.rng,
             y_real=y, code_y=codes["y"], uni=uni, dp=dp)
-        dis_leaves = tree_leaves(ts.params["dis"])
-        gen_leaves = tree_leaves(ts.params["gen"])
-        grads_dis = _grads(loss_dis, dis_leaves, retain_graph=True)
-        grads_gen = _grads(loss_gen, gen_leaves)
-        if dp is not None:
-            grads_dis, grads_gen = average_flat(grads_dis, dp), average_flat(grads_gen, dp)
-        _update(opt_dis, do_dis, dis_leaves, grads_dis, ts.opt_state_dis)
-        _update(opt_gen, do_gen, gen_leaves, grads_gen, ts.opt_state_gen)
+        grads_dis = _grads(loss_dis, tree_leaves(params["dis"]), retain_graph=True)
+        grads_gen = _grads(loss_gen, tree_leaves(params["gen"]))
+        grads_dis = _mean_grads(ts, "dis", grads_dis, dp)
+        grads_gen = _mean_grads(ts, "gen", grads_gen, dp)
+        _update(opt_dis, do_dis, tree_leaves(ts.params["dis"]), grads_dis, ts.opt_state_dis)
+        _update(opt_gen, do_gen, tree_leaves(ts.params["gen"]), grads_gen, ts.opt_state_gen)
         # after both gradients: autograd saved the old SN vectors
         _set_net_state(ts, {"gen": gen_state, "dis": dis_state}, dp)
         with torch.no_grad():
@@ -174,8 +207,8 @@ def build_train_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         metrics = {"loss_gen": loss_gen.detach(), "loss_dis": loss_dis.detach(),
                    **{k: v.detach() for k, v in aux.items()}}
         if model.do_summary:
-            metrics["grad_norm_dis"] = _global_norm(grads_dis)
-            metrics["grad_norm_gen"] = _global_norm(grads_gen)
+            metrics["grad_norm_dis"] = _grad_norm(ts, "dis", grads_dis)
+            metrics["grad_norm_gen"] = _grad_norm(ts, "gen", grads_gen)
         return ts, metrics
 
     train_step.dp = dp
@@ -242,14 +275,14 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
                           loss_type in DS_LOSSES)
     needs_gx = is_gp or is_w
 
-    def micro_fwd(ts: TrainState, mb: Dict):
+    def micro_fwd(ts: TrainState, params: Dict, mb: Dict):
         """Scores of concat(real, fake), real first; the new states; the
         generated images."""
-        gen_x, gen_state = model.Gen.apply(ts.params["gen"], ts.net_state["gen"], mb["z"],
+        gen_x, gen_state = model.Gen.apply(params["gen"], ts.net_state["gen"], mb["z"],
                                            train=True, label=mb["zy"], dp=dp)
         dis_in = model.concat_two_batches({"x": mb["x"], "y": mb["y"]},
                                           {"x": gen_x, "y": mb["zy"]})
-        scores, dis_state = model.Dis.apply(ts.params["dis"], ts.net_state["dis"], dis_in["x"],
+        scores, dis_state = model.Dis.apply(params["dis"], ts.net_state["dis"], dis_in["x"],
                                             train=True, label=dis_in["y"], dp=dp)
         return scores, {"gen": gen_state, "dis": dis_state}, gen_x
 
@@ -277,15 +310,16 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         mbs = [dict(zip(("x", "y", "z", "zy"), parts)) for parts in
                zip(x.chunk(m_count), split(y), codes["x"].chunk(m_count), split(codes["y"]))]
         xs, ys = x.chunk(m_count), split(y)
-        dis_leaves = tree_leaves(ts.params["dis"])
-        gen_leaves = tree_leaves(ts.params["gen"])
+        params = _entry_params(ts, dp)
+        dis_leaves = tree_leaves(params["dis"])
+        gen_leaves = tree_leaves(params["gen"])
 
         # pass 1: scores only (and the images the penalties interpolate)
         n = b // m_count
         s_xs, s_gens, gxs, gx_abs = [], [], [], []
         with torch.no_grad():
             for mb in mbs:
-                scores, _, gen_x = micro_fwd(ts, mb)
+                scores, _, gen_x = micro_fwd(ts, params, mb)
                 scores = global_rows(scores, all_gather_raw)
                 s_xs.append(scores[:n])
                 s_gens.append(scores[n:])
@@ -310,11 +344,11 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
             pen_sum, pen_gd = 0.0, [torch.zeros_like(t) for t in wrt]
             for xm, ym, gxm, um in zip(xs, ys, gxs, unis):
                 if is_gp:
-                    pen = model.mmd_gradient_penalty(ts.params["dis"], ts.net_state, xm, gxm,
+                    pen = model.mmd_gradient_penalty(params["dis"], ts.net_state, xm, gxm,
                                                      s_x, s_gen, mode=loss_type, uni=um,
                                                      labels=ym, dp=dp)
                 else:
-                    pen = model.gradient_penalty(ts.params["dis"], ts.net_state, xm, gxm, uni=um,
+                    pen = model.gradient_penalty(params["dis"], ts.net_state, xm, gxm, uni=um,
                                                  labels=ym, dp=dp)
                 torch._foreach_add_(pen_gd, _grads(pen, wrt))
                 pen_sum = pen_sum + pen.detach()
@@ -327,7 +361,7 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
             jaco_sum, pen_gd = 0.0, [torch.zeros_like(t) for t in dis_leaves]
             for xm, ym in zip(xs, ys):
                 def fwd(xx, ym=ym):
-                    return model._dis_fwd(ts.params["dis"], ts.net_state, xx, ym)
+                    return model._dis_fwd(params["dis"], ts.net_state, xx, ym)
                 jaco = batch_mean(jacobian_squared_frobenius_norm(fwd, xm), dp)
                 torch._foreach_add_(pen_gd, _grads(jaco, dis_leaves))
                 jaco_sum = jaco_sum + jaco.detach()
@@ -355,7 +389,7 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
         grads_gen = [torch.zeros_like(t) for t in gen_leaves]
         state_sum = [torch.zeros_like(t) for t in tree_leaves(ts.net_state)]
         for mb, ct_d, ct_g in zip(mbs, cts_d, cts_g):
-            scores, new_state, _ = micro_fwd(ts, mb)
+            scores, new_state, _ = micro_fwd(ts, params, mb)
             scores = global_rows(scores, all_gather)
             torch._foreach_add_(grads_dis, _grads(scores, dis_leaves, True, ct_d))
             torch._foreach_add_(grads_gen, _grads(scores, gen_leaves, False, ct_g))
@@ -366,11 +400,11 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
             # scale = 1 / (w mean + 1), so d scale / d mean = -w scale^2
             w_ds = cd_extra[0] * (-model.penalty_weight * dis_scale.detach() ** 2) / m_count
             torch._foreach_add_(grads_dis, torch._foreach_mul(pen_gd, w_ds))
-        if dp is not None:
-            grads_dis, grads_gen = average_flat(grads_dis, dp), average_flat(grads_gen, dp)
+        grads_dis = _mean_grads(ts, "dis", grads_dis, dp)
+        grads_gen = _mean_grads(ts, "gen", grads_gen, dp)
 
-        _update(opt_dis, do_dis, dis_leaves, grads_dis, ts.opt_state_dis)
-        _update(opt_gen, do_gen, gen_leaves, grads_gen, ts.opt_state_gen)
+        _update(opt_dis, do_dis, tree_leaves(ts.params["dis"]), grads_dis, ts.opt_state_dis)
+        _update(opt_gen, do_gen, tree_leaves(ts.params["gen"]), grads_gen, ts.opt_state_gen)
         with torch.no_grad():
             _set_net_state(ts, torch._foreach_div(state_sum, m_count), dp)
             torch._foreach_copy_(loss_state_leaves(ts.loss_state),
@@ -380,8 +414,8 @@ def build_grad_accum_step(model: SNGan, opt_dis: Optimizer, opt_gen: Optimizer,
                    "s_x_mean": torch.mean(s_x.detach()), "s_gen_mean": torch.mean(s_gen.detach()),
                    "x_gen_abs_mean": gx_abs_mean, **{k: v.detach() for k, v in loss_aux.items()}}
         if model.do_summary:
-            metrics["grad_norm_dis"] = _global_norm(grads_dis)
-            metrics["grad_norm_gen"] = _global_norm(grads_gen)
+            metrics["grad_norm_dis"] = _grad_norm(ts, "dis", grads_dis)
+            metrics["grad_norm_gen"] = _grad_norm(ts, "gen", grads_gen)
         return ts, metrics
 
     train_step.dp = dp
@@ -913,6 +947,9 @@ def build_device_data_step(
     def make(dp=None, axis: Optional[str] = None, imbalanced=None) -> Callable:
         if dp is not None and axis is not None and axis != dp.axis:
             raise ValueError(f"the mesh's axis is {dp.axis!r}, not {axis!r}")
+        if getattr(dp, "model_axis", None) is not None:
+            raise ValueError("HBM-resident datasets are data-parallel only (the shard_map "
+                             "sampler shards rows over the data axis); use a 1-D mesh")
         if scheduled and imbalanced is not None:
             raise ValueError("same_class + shuffled_epochs is not combinable with imbalanced "
                              "schedules (the class schedule is step-indexed)")
@@ -1118,9 +1155,11 @@ class EpochPermuter:
 def build_eval_step(model: SNGan) -> Callable:
     """Eval-mode generation (``mmdgan_tpu/train/step.py:1240-1246``):
     ``eval_step(ts, generator, batch_size) -> [N, H, W, C]`` images in
-    [-1, 1], z drawn from ``generator``."""
+    [-1, 1], z drawn from ``generator``. A sharded state's weights are
+    gathered first, a collective: every rank calls it."""
 
     def eval_step(ts: TrainState, generator: torch.Generator, batch_size: int) -> torch.Tensor:
-        return model.generate(ts.params, ts.net_state, generator, batch_size)
+        params = ts.params if ts.layout is None else ts.layout.gather(ts)
+        return model.generate(params, ts.net_state, generator, batch_size)
 
     return eval_step

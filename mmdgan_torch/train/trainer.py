@@ -29,11 +29,14 @@ model takes them, and ``sample_same_class`` draws each device-data batch
 from one class.
 
 Data parallelism (``dp``, a ``parallel.DataParallel``) threads through all
-three loops: the state is replicated from rank 0, every rank feeds its own
-rows (host-fed: its pipeline shard; device data: its shard of the
-dataset), checkpoints, summaries and ``_abnormal_save`` are written by
-rank 0 behind a barrier, and every rank restores. The guards read the
-replicated metrics, so every rank decides alike.
+three loops: the state is placed by ``dp.ensure_placed`` (replicated from
+rank 0, or kept in the sharded layout it came in: ``shard_state(fsdp=True)``
+or a 2-D mesh's), every rank feeds its own rows (host-fed: its pipeline
+shard; device data: its shard of the dataset), checkpoints, summaries and
+``_abnormal_save`` are written by rank 0 behind a barrier, and every rank
+restores. A sharded state's checkpoints and parameter histograms hold the
+whole state, gathered by every rank first. The guards read the replicated
+metrics, so every rank decides alike.
 """
 
 from __future__ import annotations
@@ -185,15 +188,16 @@ class Agent:
 
     def _use_mesh(self, dp, ts: TrainState, step: Optional[Callable] = None) -> TrainState:
         """Enter a loop on ``dp`` (None: one device): the step must have
-        been built with it, and the state is replicated from rank 0."""
+        been built with it, and the state is placed on the mesh
+        (``ensure_placed``: a sharded state keeps its layout)."""
         self._dp = dp
         if dp is None:
             if getattr(step, "dp", None) is not None:
                 raise ValueError("the step was built with a mesh: pass its dp to the Agent")
             return ts
         if step is not None:
-            dp.compile_step(step)
-        return dp.replicate(ts)
+            dp.compile_step(step, out_state_like=ts)
+        return dp.ensure_placed(ts)
 
     # ------------------------------------------------------------------
     # summaries
@@ -201,15 +205,12 @@ class Agent:
     def _write_query(self, gstep: int, scalars: Dict, hists: Dict,
                      ts: Optional[TrainState] = None):
         """One query step's summaries: scalars, the step's ``hist/*``
-        histograms over their fixed ranges (``HIST_RANGES``), and (every
-        ``param_hist_step``) per-variable parameter histograms."""
+        histograms over their fixed ranges (``HIST_RANGES``), and the
+        per-variable parameter histograms of ``ts`` when given."""
         self.writer.scalars(gstep, scalars)
         for k, counts in hists.items():
             self.writer.histogram(gstep, k, counts, *HIST_RANGES[k])
-        if (ts is not None and self.param_hist_step > 0
-                and (self._last_param_hist is None
-                     or gstep - self._last_param_hist >= self.param_hist_step)):
-            self._last_param_hist = gstep
+        if ts is not None:
             self.write_param_histograms(ts, gstep)
 
     def write_param_histograms(self, ts: TrainState, step: int):
@@ -271,9 +272,15 @@ class Agent:
         return vals, hists
 
     def _report(self, ts, step, vals, hists, steps_done, start, step_per_epoch, force_print):
+        hist_ts = None
+        if self.param_hist_step > 0 and (self._last_param_hist is None or
+                                         step - self._last_param_hist >= self.param_hist_step):
+            # every rank: gathering a sharded state is a collective
+            self._last_param_hist = step
+            hist_ts = ts if ts.layout is None else ts.layout.gathered(ts)
         if not self.is_main:
             return
-        self._write_query(step, vals, hists, ts)
+        self._write_query(step, vals, hists, hist_ts)
         if self.print_loss or force_print:
             epoch = (step - 1) // max(step_per_epoch, 1)
             speed = steps_done / (time.time() - start)

@@ -11,7 +11,11 @@ so a reader sees all of it or nothing; the oldest are removed beyond
 ``max_to_keep``. ``restore_into`` writes a checkpoint into an existing
 TrainState in place, so CUDA graphs captured on that state stay valid.
 Under a mesh only rank 0 writes, behind a barrier, and every rank reads
-the same file. Reading the JAX package's orbax checkpoints is not ported.
+the same file. A sharded state (``DataParallel.shard_state``) is written
+whole, gathered by every rank first, and a checkpoint restores into a
+state of either layout: a sharded one takes its rank's pieces, so a run
+saved under fsdp resumes replicated and the other way round. Reading the
+JAX package's orbax checkpoints is not ported.
 """
 
 from __future__ import annotations
@@ -62,8 +66,11 @@ def state_dict(ts: TrainState) -> Dict:
 def save(ckpt_folder: str, ts: TrainState, step: int, max_to_keep: int = 2, dp=None) -> str:
     """Write ``ts`` as the checkpoint of ``step``; keep the newest
     ``max_to_keep``. Returns the file's path. With a mesh (``dp``) rank 0
-    writes the replicated state and every rank waits for it."""
+    writes the replicated state and every rank waits for it; every rank
+    first gathers a sharded state."""
     path = ckpt_path(ckpt_folder, step)
+    if ts.layout is not None:
+        ts = ts.layout.gathered(ts)
     if dp is None or dp.is_main:
         os.makedirs(ckpt_folder, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -89,6 +96,8 @@ def restore_into(ts: TrainState, path: str) -> TrainState:
     leaves = ts.tensors()
     if len(leaves) != len(stored):
         raise ValueError(f"{path} holds {len(stored)} tensors, the state {len(leaves)}")
+    if ts.layout is not None:
+        stored = [ts.layout.local(src, dst) for dst, src in zip(leaves, stored)]
     with torch.no_grad():
         for dst, src in zip(leaves, stored):
             if dst.shape != src.shape or dst.dtype != src.dtype:

@@ -21,7 +21,8 @@ from mmdgan_torch.data.pipeline import ReadTFRecords
 from mmdgan_torch.data.prefetch import background, prefetch
 from mmdgan_torch.data.tfrecord import TFRecordReader, crc32c, np_to_tfrecords
 from mmdgan_torch.models.sngan import SNGan
-from mmdgan_torch.parallel import make_mesh_2d
+from mmdgan_torch.parallel import DataParallel, make_mesh_2d
+from mmdgan_torch.parallel.mesh import init_distributed
 from mmdgan_torch.train.optim import multi_opt_config
 from mmdgan_torch.train.step import EpochPermuter, build_device_data_step
 
@@ -95,11 +96,12 @@ def test_uniform_draws_are_in_range_and_move():
     assert len(np.unique(np.concatenate(rows))) > B
 
 
-def test_unported_sampling_options_raise():
-    """The 2-D mesh and fsdp state sharding raise (ROADMAP A15b; the 1-D
-    mesh is ported: ``with_mesh(None)`` is the single-device window);
-    same-class sampling (ported) raises without its class tables; a
-    labelled dataset is sampled with its labels."""
+def test_unported_sampling_options_raise(tmp_path):
+    """The 2-D mesh builds, and its device-data window raises the JAX
+    package's message (``mmdgan_tpu/train/trainer.py:605-607``: the
+    sampler shards rows over the data axis only); ``with_mesh(None)`` is
+    the single-device window; same-class sampling raises without its class
+    tables; a labelled dataset is sampled with its labels."""
     model = SNGan(ARCH, device="cpu")
     opt_d, opt_g = multi_opt_config([1e-3, 1e-3])
     with pytest.raises(ValueError, match="same_class_tables"):
@@ -109,8 +111,14 @@ def test_unported_sampling_options_raise():
         build_device_data_step(model, opt_d, opt_g, 2, B, micro_batches=3, device="cpu")
     fn = build_device_data_step(model, opt_d, opt_g, 2, B, device="cpu")
     assert fn.with_mesh(None).dp is None
-    with pytest.raises(NotImplementedError, match="A15b"):
-        make_mesh_2d(2, 1)
+    init_distributed("gloo", f"file://{tmp_path / 'store'}", 0, 1)
+    try:
+        dp = DataParallel(make_mesh_2d(1, 1), device="cpu")
+        assert (dp.axis, dp.model_axis, dp.size, dp.model.size) == ("data", "model", 1, 1)
+        with pytest.raises(ValueError, match="HBM-resident datasets are data-parallel only"):
+            fn.with_mesh(dp)
+    finally:
+        torch.distributed.destroy_process_group()
     data_y = torch.arange(N).reshape(N, 1)
     batch = fn.sampler(torch.arange(N, dtype=torch.float32).reshape(N, 1, 1, 1).expand(
         N, 8, 8, 1), data_y)(torch.Generator().manual_seed(0), torch.tensor(0))

@@ -308,10 +308,26 @@ def test_collectives_differentiate_twice(one_rank):
 
 
 def test_deferred_options_and_divisibility_errors(one_rank):
-    with pytest.raises(NotImplementedError, match="A15b"):
+    """The 2-D mesh and fsdp (once deferred) build: a 2-D mesh needs its
+    ranks, refuses ``fsdp=True`` with the JAX package's assertion
+    (``mmdgan_tpu/parallel/mesh.py:206-209``) and otherwise shards over
+    its model axis; fsdp shards a 1-D mesh's state, the small leaves
+    replicated. Then the divisibility errors."""
+    with pytest.raises(ValueError, match=r"\(2,2\) mesh needs 4 ranks"):
         make_mesh_2d(2, 2)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        one_rank.shard_state({}, fsdp=True)
+    dp2 = DataParallel(make_mesh_2d(1, 1), device="cpu")
+    with pytest.raises(AssertionError, match="fsdp shards over the data"):
+        dp2.shard_state({"w": torch.ones(4, 4)}, fsdp=True)
+    assert dp2.shard_state({"w": torch.ones(4096)})["w"].shape == (4096,)
+    model, opt_d, opt_g, ts = _model_and_state()
+    sharded = dp2.shard_state(ts, min_size=64)
+    assert sharded.layout.axis_name == "model" and not dp2._is_fsdp_layout(sharded)
+    placed = one_rank.shard_state({"w": torch.ones(64, 64), "b": torch.ones(8)}, fsdp=True)
+    assert placed["w"].shape == (4096,) and placed["b"].shape == (8,)
+    sharded = one_rank.shard_state(ts, min_size=64, fsdp=True)
+    assert one_rank._is_fsdp_layout(sharded) and one_rank.ensure_placed(sharded) is sharded
+    # the two 512-element kernels and the generator's 64-wide BN scale and offset
+    assert sharded.layout.sharded_leaves == 4
     ranks = types.SimpleNamespace(size=4, rank=1, process_count=4)
     with pytest.raises(ValueError, match="not divisible by 4 processes"):
         DataParallel.local_batch_size(ranks, 30)

@@ -451,12 +451,28 @@ def test_cifar_cli_other_loss_with_histograms(tmp_path):
 # tests/test_torch_optim.py); the other cases keep their ids
 @pytest.mark.parametrize("flags,item", [
     pytest.param(["--skip-sampling", "--skip-metrics", "--use-pallas"], "B1", id="flags1-B1"),
-    pytest.param(["--skip-sampling", "--skip-metrics", "--compilation-cache", "cache"], "A16",
+    pytest.param(["--skip-sampling", "--skip-metrics", "--compilation-cache"], None,
                  id="flags2-A16"),
 ])
-def test_cifar_cli_refuses_unported_flags(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cifar_main(["--device", "cpu", "--out-dir", str(tmp_path), *flags])
+def test_cifar_cli_refuses_unported_flags(tmp_path, monkeypatch, capsys, flags, item):
+    """``--use-pallas`` refuses, naming ROADMAP B1. ``--compilation-cache``
+    (A16) is ported: a two-step synthetic run takes it and prints the
+    cache's directory, as the JAX CLI does (``experiments/runner.py:141-145``)."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            cifar_main(["--device", "cpu", "--out-dir", str(tmp_path), *flags])
+        return
+    from mmdgan_torch.ops import _build
+
+    for name in (_build.CACHE_ENV, _build.CACHE_MIN_SECONDS_ENV, "TORCHINDUCTOR_CACHE_DIR",
+                 "TRITON_CACHE_DIR"):
+        monkeypatch.setenv(name, "")   # the CLI sets them; restored after the test
+    cache = tmp_path / "cache"
+    cifar_main(["--device", "cpu", "--out-dir", str(tmp_path), *flags, str(cache),
+                "--synthetic-data", "--debug-mode", "true", "--debug-step", "2",
+                "--compute-dtype", "float32", "--chunks", "1", "--batch-size", "8"])
+    assert f"Compilation cache: {cache}" in capsys.readouterr().out
+    assert cache.is_dir() and os.environ[_build.CACHE_ENV] == str(cache)
 
 
 # --num-class and --sample-same-class run now (the conditional models and
