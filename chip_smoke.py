@@ -158,6 +158,27 @@ Phases, each fatal on failure:
      replicated layout's; 14d, four gloo ranks as a (2, 2) mesh, the
      narrow rep steps likewise; beside them
      ``python -m mmdgan_torch.tools.profile_step --arch cifar``.
+15. real data, the data and checkpoint utilities and the learning tools:
+   - 15a: five CIFAR-10 binary batches (50,000 seeded records of 3,073
+     bytes) converted by ``data/converters.py`` (``save_label=False``);
+     the g++ build of ``csrc/tfrec.cc`` timed (cold or a hit) and a second
+     process's load of it; each reader's records/s alone and their first
+     256 batches bitwise equal; the main path (CIFAR-10 rep b64 bf16,
+     graphed K=16) host-fed from the records by the native and the Python
+     reader in turns (steps/s, a profiled replay per turn, 1 + 2
+     kernel-means launches per step); then the cifar CLI in this process
+     over the records (``--data-dir``, ``--skip-metrics``), its
+     metrics.jsonl read back with ``utils/events.py``;
+   - 15b: both kernels against their plain versions at (128, 8) and
+     (128, 2), with phase 3's tolerances, timed and bounded;
+   - 15c: ``SimData`` learning on the card (tests/test_integration.py's
+     recipe, 800 f32 steps in graphed windows, one more replay profiled):
+     MMD below 0.7 of its start, the mean within 0.25 of mu;
+   - 15d: ``tools/figure1.py``'s ``particle_run`` (rep, 600 steps, the
+     shell target), its first 10 steps against the CPU at rtol 1e-4;
+   - 15e: ``tests/data/tf1_narrow`` (a TF1 bundle written by TF, NCHW)
+     read with no TensorFlow into a model on the card, its outputs against
+     JAX's committed ones at rtol 1e-3, then 16 steps from it.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -2727,6 +2748,383 @@ def run_serving_and_sharding(dev, card: str) -> list:
     return counted
 
 
+# ----------------------------------------------------------------------
+# phase 15: real CIFAR-format data, the kernel at new shapes, SimData,
+# figure1, a TF1 checkpoint
+# ----------------------------------------------------------------------
+
+CIFAR_FILES, CIFAR_PER_FILE = 5, 10000      # data_batch_{1..5}.bin, 3,073 bytes a record
+READER_WINDOWS = 8                  # timed host-fed windows per reader and turn
+COMPARE_BATCHES = 256               # batches held bitwise between the two readers
+CLI_STEPS = 64                      # the CLI's chunk over the converted records
+NEW_SHAPES = [(128, 8), (128, 2)]   # the SimData path's scores, figure1's particles
+SIM_STEPS, SIM_BATCH = 800, 128     # tests/test_integration.py:46-75
+FIG1_STEPS, FIG1_CHECK = 600, 10
+TF1_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                           "tf1_narrow")
+TF1_TRAIN_STEPS = 16
+# tests/test_integration.py:17-36: 2-D data as 1x1 images with 2 channels
+SIM_ARCH = {
+    "input": [(2, 1, 1)],
+    "code": [(8, "linear")],
+    "generator": [
+        {"name": "l1", "out": 32, "op": "d", "act": "relu", "act_nm": None, "in_reshape": [8]},
+        {"name": "l2", "out": 32, "op": "d", "act": "relu"},
+        {"name": "l3", "out": 2, "op": "d", "act": "linear", "out_reshape": [2, 1, 1]},
+    ],
+    "discriminator": [
+        {"name": "l1", "out": 32, "op": "d", "act": "lrelu", "w_nm": "s", "act_k": 2.0,
+         "in_reshape": [2]},
+        {"name": "l2", "out": 32, "op": "d", "act": "lrelu", "w_nm": "s", "act_k": 2.0},
+        {"name": "l3", "out": 8, "op": "d", "w_nm": "s", "act_k": 2.0},
+    ],
+}
+
+
+NATIVE_BUILD_SCRIPT = """
+import json, sys, time
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+from mmdgan_torch.ops import _build
+from mmdgan_torch.data import native
+_build.BUILD_DIR = Path(sys.argv[2])        # not the checkout's build/
+built = not _build.library_path(native.SOURCE).exists()
+start = time.perf_counter()
+native.get_lib()
+print(json.dumps({"seconds": time.perf_counter() - start, "built": built}))
+"""
+
+
+def counters() -> list:
+    return [cuda_mmd.kernel_means_cuda.launches, cuda_mmd.kernel_means_backward_cuda.launches]
+
+
+def write_cifar_binaries(folder: str, seed: int = 0) -> list:
+    """CIFAR_FILES files in the CIFAR-10 binary format (a label byte, then
+    3,072 CHW pixel bytes, per record), seeded."""
+    rng = np.random.RandomState(seed)
+    paths = []
+    for i in range(CIFAR_FILES):
+        rows = np.empty((CIFAR_PER_FILE, 3073), np.uint8)
+        rows[:, 0] = rng.randint(0, 10, CIFAR_PER_FILE)
+        rows[:, 1:] = rng.randint(0, 256, (CIFAR_PER_FILE, 3072), dtype=np.uint8)
+        path = os.path.join(folder, f"data_batch_{i + 1}.bin")
+        rows.tofile(path)
+        paths.append(path)
+    return paths
+
+
+def cifar_pipe(folder: str, use_native: bool, **kw):
+    """The cifar CLI's pipeline over ``cifar.tfrecords`` (uint8 batches,
+    scaled on the card)."""
+    from mmdgan_torch.data.pipeline import ReadTFRecords
+
+    return ReadTFRecords("cifar", batch_size=BATCH, file_folder=folder, device_decode=True,
+                         use_native=use_native, **kw).shape2image(3, 32, 32)
+
+
+def host_windows(multi, ts, batches, windows: int) -> tuple:
+    """``windows`` K-step windows fed K host batches each from the iterator
+    ``batches``; returns (ts, last metrics, steps/s)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(windows):
+        ts, m = multi(ts, {"x": np.stack([next(batches)["x"] for _ in range(SCAN_K)])})
+    torch.cuda.synchronize()
+    return ts, m, windows * SCAN_K / (time.perf_counter() - start)
+
+
+def check_real_cifar(dev, card: str, tmp: str) -> list:
+    """15a: the CIFAR-10 binary batches converted by the port and read back
+    by both readers into the main path. Returns the kernel-means launches
+    of its training (the wrappers' counters over eager windows and
+    captures, the profiler's over replays, the CLI's counters)."""
+    from mmdgan_torch.data import converters, native
+    from mmdgan_torch.experiments.cifar import main as cifar_main
+    from mmdgan_torch.utils.events import read_metrics_jsonl
+
+    existed = _build.library_path(native.SOURCE).exists()
+    start = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - start
+    cold, hit = (_json_tail(subprocess.run(
+        [sys.executable, "-c", NATIVE_BUILD_SCRIPT, os.path.dirname(os.path.abspath(__file__)),
+         os.path.join(tmp, "native_build")], capture_output=True, text=True, timeout=300,
+        check=True, env={k: v for k, v in os.environ.items() if k != _build.CACHE_ENV}).stdout)
+        for _ in range(2))
+    assert cold["built"] and not hit["built"], (cold, hit)
+    log(f"[data] native reader {native.SOURCE}: in this process {build_s:.3f} s "
+        f"({'loaded from build/' if existed else 'g++ into build/'}); into an empty directory "
+        f"in a fresh process g++ -O3 took {cold['seconds']:.3f} s, a second process loads it "
+        f"in {hit['seconds']:.4f} s; flags {' '.join(_build.HOST_FLAGS)}")
+
+    start = time.perf_counter()
+    files = write_cifar_binaries(tmp)
+    written = time.perf_counter() - start
+    start = time.perf_counter()
+    converters.binary_image_to_tfrecords(files, os.path.join(tmp, "cifar"),
+                                         CIFAR_FILES * CIFAR_PER_FILE, (3, 32, 32),
+                                         save_label=False)
+    converted = time.perf_counter() - start
+    size = sum(os.path.getsize(f) for f in files)
+    log(f"[data] {CIFAR_FILES} CIFAR-10 binary batches, {size:,} bytes, written in "
+        f"{written:.2f} s, converted to cifar.tfrecords "
+        f"({os.path.getsize(os.path.join(tmp, 'cifar.tfrecords')):,} bytes) in {converted:.2f} s "
+        "(binary_image_to_tfrecords, save_label=False)")
+
+    rates = {}
+    for use_native in (True, False):
+        pipe = cifar_pipe(tmp, use_native, num_epoch=1)
+        start = time.perf_counter()
+        n = sum(1 for _ in pipe._iter_raw())
+        rates[use_native] = n / (time.perf_counter() - start)
+        assert n == CIFAR_FILES * CIFAR_PER_FILE, n
+    got = cifar_pipe(tmp, True).next_batch()
+    want = cifar_pipe(tmp, False).next_batch()
+    for i in range(COMPARE_BATCHES):
+        a, b = next(got)["x"], next(want)["x"]
+        assert a.dtype == b.dtype == np.uint8 and np.array_equal(a, b), f"batch {i} differs"
+    got.close()
+    want.close()
+    log(f"[data] records/s alone (decode to uint8 HWC, one pass of 50,000): native "
+        f"{rates[True]:,.0f}, Python {rates[False]:,.0f} ({rates[True] / rates[False]:.2f}x); "
+        f"the first {COMPARE_BATCHES} batches of b{BATCH} (shuffle buffer 10,000) bitwise equal")
+
+    reset_counters()
+    model, ts, multi, _ = main_path_setup(dev, "rep")
+    sps = {True: [], False: []}
+    launches = [0, 0]
+    for turn in range(2):
+        for use_native in (True, False):
+            batches = cifar_pipe(tmp, use_native, seed=turn).next_batch()
+            if turn == 0 and use_native:   # the graph's eager warm-up and its capture
+                ts, _, _ = host_windows(multi, ts, batches, WARMUP_CALLS)
+            ts, m, rate = host_windows(multi, ts, batches, READER_WINDOWS)
+            sps[use_native].append(rate)
+            what = f"15a {'native' if use_native else 'Python'} reader, turn {turn}"
+            prof = _profiled_window(multi, ts, {"x": np.stack(
+                [next(batches)["x"] for _ in range(SCAN_K)])}, what)
+            launches = [launches[0] + prof["kernel_means_fwd"],
+                        launches[1] + prof["kernel_means_bwd"]]
+            log(f"[data] {what}, a replay: device busy {prof['union']:.4f} ms/step over a span "
+                f"of {prof['span']:.4f} (idle {100 * (1 - prof['union'] / prof['span']):.1f}%), "
+                f"idle {100 * (1 - prof['union'] * rate / 1e3):.1f}% of the untraced step; "
+                f"{prof['activities']:.0f} activities/step")
+            batches.close()
+            bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
+            assert not bad, f"{what}: non-finite {bad}"
+    assert counters() == [n * SCAN_K * 2 for n in KERNEL_EVENTS.values()], counters()
+    launches = [a + b for a, b in zip(launches, counters())]
+    log(f"[data] cifar10 rep b{BATCH} bf16 graphed K={SCAN_K}, host-fed from the converted "
+        f"records (uint8 batches, {READER_WINDOWS * SCAN_K} steps per turn, in turns): native "
+        f"reader {', '.join(f'{v:.2f}' for v in sps[True])} steps/s, Python reader "
+        f"{', '.join(f'{v:.2f}' for v in sps[False])} steps/s; e_kxx "
+        f"{float(m['e_kxx'][-1]):.5f}; kernel means 1 + 2 per step in a profiled replay of "
+        f"each turn; card: {card}")
+
+    out = os.path.join(tmp, "cli")
+    reset_counters()
+    start = time.perf_counter()
+    cifar_main(["--data-dir", tmp, "--skip-metrics", "--fresh", "--chunks", "1",
+                "--steps-per-chunk", str(CLI_STEPS), "--query-step", str(SCAN_K),
+                "--out-dir", out])
+    seconds = time.perf_counter() - start
+    cli = counters()
+    windows = cli[0] // SCAN_K
+    assert cli == [n * SCAN_K * windows for n in KERNEL_EVENTS.values()] and windows >= 2, cli
+    run = "sngan_rep_5e-04_2e-04_k1.68_0.0_-1.0"
+    recs = read_metrics_jsonl(os.path.join(out, "cifar_log", run))
+    rows = np.isfinite(recs["loss_gen"])
+    steps = recs["step"][rows].astype(int).tolist()
+    assert steps == list(range(SCAN_K, CLI_STEPS + 1, SCAN_K)), steps
+    assert np.isfinite(recs["loss_dis"][rows]).all() and np.isfinite(recs["loss_gen"][rows]).all()
+    log(f"[data] python -m mmdgan_torch.experiments.cifar --data-dir (the converted records, "
+        f"native reader): {CLI_STEPS} steps and the sprite in {seconds:.1f} s; metrics.jsonl "
+        f"read back by utils/events.py: loss rows at steps {steps}, finite; last loss_gen "
+        f"{recs['loss_gen'][rows][-1]:.5f}; kernel-means counters {cli[0]}/{cli[1]} in "
+        f"{windows} eager or captured windows")
+    return [a + b for a, b in zip(launches, cli)]
+
+
+def check_kernel_shapes(dev, kernels: list) -> None:
+    """15b: both kernels against their plain versions at NEW_SHAPES, with
+    phase 3's tolerances, and timed (CUDA events; a replayed graph)."""
+    cts = cotangents(dev)
+    for i, (b, d) in enumerate(NEW_SHAPES):
+        sg, sx = scores(b, d, seed=10 + i, device=dev)
+        got = cuda_mmd.kernel_means_cuda(sg, sx, 1.0)
+        want = cuda_mmd.kernel_means_reference(sg, sx, 1.0)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **VAL_TOL,
+                                   err_msg=f"kernel means at {(b, d)}")
+        assert torch.equal(got, cuda_mmd.kernel_means_cuda(sg, sx, 1.0))
+        fwd_err = float((got - want).abs().max())
+        bwd_err = 0.0
+        for name, ct in cts.items():
+            g = cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0)
+            w = cuda_mmd.kernel_means_backward_reference(sg, sx, ct, 1.0)
+            atols = cuda_mmd.kernel_means_backward_atol(sg, sx, ct, 1.0)
+            bwd_err = max(bwd_err, assert_grads_close(g, w, atols, f"backward {(b, d)} {name}"))
+            again = cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0)
+            assert all(torch.equal(x, y) for x, y in zip(g, again))
+        ct = cts["loss_gen"]
+        with torch.no_grad():
+            timed = {
+                "fwd": (cuda_ms(lambda: cuda_mmd.kernel_means_cuda(sg, sx, 1.0), 2000),
+                        graph_ms(lambda: cuda_mmd.kernel_means_cuda(sg, sx, 1.0)),
+                        cuda_ms(lambda: cuda_mmd.kernel_means_reference(sg, sx, 1.0), 2000),
+                        graph_ms(lambda: cuda_mmd.kernel_means_reference(sg, sx, 1.0)),
+                        kernel_means_bound_ms(b, d)),
+                "bwd": (cuda_ms(lambda: cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0),
+                                2000),
+                        graph_ms(lambda: cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0)),
+                        cuda_ms(lambda: cuda_mmd.kernel_means_backward_reference(
+                            sg, sx, ct, 1.0), 2000),
+                        graph_ms(lambda: cuda_mmd.kernel_means_backward_reference(
+                            sg, sx, ct, 1.0)),
+                        kernel_means_backward_bound_ms(b, d))}
+        for kernel, err, (ms, dev_ms, plain, plain_dev, (bound, by, pipe)) in zip(
+                kernels, (fwd_err, bwd_err), timed.values()):
+            kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+            kernel.setdefault("shapes", []).append(
+                {"b": b, "d": d, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                 "plain_device_ms": plain_dev, "bound_ms": bound, "bound_by": by,
+                 "max_abs_err": err})
+            log(f"[kernels] {kernel['name']} at ({b}, {d}): agrees with its plain version "
+                f"(max |err| {err:.3e}), deterministic; {ms:.5f} ms/call ({dev_ms:.5f} ms on "
+                f"the device from a CUDA graph), plain {plain:.5f} ms/call ({plain_dev:.5f} "
+                f"ms from a graph), bound {bound:.3e} ms ({pipe})")
+
+
+def check_simdata(dev, card: str) -> list:
+    """15c: tests/test_integration.py's recipe on the card through graphed
+    K=16 windows, float32; its asserts. Returns the kernel-means launches:
+    the wrappers' counters over the eager warm-up window and the capture,
+    and the profiler's over one more replayed window."""
+    from mmdgan_torch.data.simdata import SimData
+    from mmdgan_torch.ops.distance import get_squared_dist
+    from mmdgan_torch.ops.kernels import mixture_mmd_g
+
+    sim = SimData("normal", mu=[0.5, -0.3], std_or_cov=[0.4, 0.2], batch_size=SIM_BATCH,
+                  seed=1)
+    model = SNGan(SIM_ARCH, loss_type="rep", compute_dtype=torch.float32)
+    opt_d, opt_g = multi_opt_config([2e-3, 1e-3])
+    ts = init_train_state(model, 0, opt_d, opt_g)
+    multi = build_multi_step(model, opt_d, opt_g, SCAN_K)
+    target = torch.tensor(sim(512), device=dev)
+    window = lambda: {"x": np.stack([sim(SIM_BATCH).reshape(SIM_BATCH, 1, 1, 2)
+                                     for _ in range(SCAN_K)])}
+
+    def mmd():
+        x = model.generate(ts.params, ts.net_state, torch.Generator(dev).manual_seed(123),
+                           256, clip=False).reshape(256, 2)
+        d = get_squared_dist(x, target, mode="xxxyyy")
+        return float(mixture_mmd_g(*d, 256, sigma=[0.1, 0.5, 1.0])), x.mean(0).cpu().numpy()
+
+    before, _ = mmd()
+    reset_counters()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(SIM_STEPS // SCAN_K):
+        ts, m = multi(ts, window())
+    torch.cuda.synchronize()
+    rate = SIM_STEPS / (time.perf_counter() - start)
+    assert_counted("15c SimData (the eager warm-up window and the capture)", 2)
+    after, mean = mmd()
+    assert np.isfinite(after) and after < 0.7 * before, (before, after)
+    np.testing.assert_allclose(mean, [0.5, -0.3], atol=0.25)
+    prof = _profiled_window(multi, ts, window(), "15c SimData replay")
+    launches = [a + prof[k] for a, k in zip(counters(), KERNEL_EVENTS)]
+    log(f"[simdata] rep on SimData normal, dense ARCH, B={SIM_BATCH}, scores d=8, f32, "
+        f"{SIM_STEPS} steps in graphed K={SCAN_K} windows ({rate:.1f} steps/s, host batches): "
+        f"MMD to the target {before:.5f} -> {after:.5f} ({after / before:.3f} of the start, "
+        f"bound 0.7), generated mean {mean.round(4).tolist()} (mu [0.5, -0.3], atol 0.25); "
+        f"loss_gen {float(m['loss_gen'][-1]):.5f}; kernel means {launches[0]} + "
+        f"{launches[1]} launches (the counters over the eager window and the capture, the "
+        f"profiler over a replay: {prof['kernel_means_fwd'] // SCAN_K} + "
+        f"{prof['kernel_means_bwd'] // SCAN_K} per step, device busy {prof['union']:.4f} "
+        f"ms/step); card: {card}")
+    return launches
+
+
+def check_figure1(dev, card: str) -> list:
+    """15d: figure1's particles on the card (rep, the fused route at
+    (128, 2)): FIG1_STEPS steps, the first FIG1_CHECK against the CPU's
+    plain path at rtol 1e-4. Returns the wrappers' counts of the run."""
+    from mmdgan_torch.tools.figure1 import particle_run
+
+    reset_counters()
+    start = time.perf_counter()
+    run = particle_run("rep", FIG1_STEPS, target="shell", device=dev)
+    seconds = time.perf_counter() - start
+    launches = counters()
+    want = particle_run("rep", FIG1_CHECK, target="shell", device="cpu")
+    np.testing.assert_allclose(run["particles"][:FIG1_CHECK + 1], want["particles"], rtol=1e-4,
+                               atol=1e-6, err_msg="figure1 card vs CPU")
+    assert np.isfinite(run["loss"]).all()
+    assert launches == [FIG1_STEPS, FIG1_STEPS], launches
+    log(f"[figure1] 128 particles, rep, shell target, lr 2: {FIG1_STEPS} steps on the card in "
+        f"{seconds:.2f} s, the first {FIG1_CHECK} within rtol 1e-4 of the CPU's plain path; "
+        f"loss {run['loss'][0]:.5f} -> {run['loss'][-1]:.5f}; kernel means "
+        f"{launches[0]} + {launches[1]} launches (one backward per step: only the particles "
+        f"take a gradient); card: {card}")
+    return launches
+
+
+def check_tf1_checkpoint(dev, card: str) -> list:
+    """15e: the committed TF1 bundle read with no TensorFlow into a port
+    model on the card, its outputs against JAX's committed ones at rtol
+    1e-3, then TF1_TRAIN_STEPS eager steps from it. Returns the wrappers'
+    counts of those steps."""
+    from mmdgan_torch.utils.tf1_import import import_reference_checkpoint
+
+    with open(os.path.join(TF1_FIXTURE, "architecture.json")) as f:
+        arch = json.load(f)
+    want = np.load(os.path.join(TF1_FIXTURE, "jax_outputs.npz"))
+    model = SNGan(arch, loss_type="rep", compute_dtype=torch.float32)
+    opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
+    ts = init_train_state(model, 0, opt_d, opt_g)
+    start = time.perf_counter()
+    params, state = import_reference_checkpoint(model, ts.params, ts.net_state,
+                                                os.path.join(TF1_FIXTURE, "model.ckpt"))
+    seconds = time.perf_counter() - start
+    gen = model.generate(params, state, code_batch={"x": want["z"]}, clip=False)
+    scores_eval = model.discriminate(params, state, want["x"])
+    errs = []
+    for name, got, ref in (("generate", gen, want["gen"]),
+                           ("discriminate", scores_eval, want["dis_eval"])):
+        np.testing.assert_allclose(got.detach().cpu().numpy(), ref, rtol=1e-3, atol=1e-5,
+                                   err_msg=f"TF1 import on the card: {name}")
+        errs.append(float(np.abs(got.detach().cpu().numpy() - ref).max()))
+    ts = TrainState(params=params, net_state=state, loss_state=ts.loss_state,
+                    opt_state_dis=ts.opt_state_dis, opt_state_gen=ts.opt_state_gen, step=0,
+                    rng=ts.rng)
+    multi = build_multi_step(model, opt_d, opt_g, TF1_TRAIN_STEPS, capture=False)
+    c, h, w = arch["input"][0]
+    x = np.random.RandomState(4).randn(TF1_TRAIN_STEPS, BATCH, h, w, c).clip(-1, 1)
+    reset_counters()
+    ts, m = multi(ts, {"x": x.astype(np.float32)})
+    launches = counters()
+    assert launches == [n * TF1_TRAIN_STEPS for n in KERNEL_EVENTS.values()], launches
+    assert all(torch.isfinite(v).all() for v in m.values()) and int(ts.step) == TF1_TRAIN_STEPS
+    log(f"[tf1] {TF1_FIXTURE[len(os.path.dirname(TF1_FIXTURE)) + 1:]} (NCHW, written by TF) read "
+        f"by utils/tf_bundle.py and imported in {seconds:.3f} s; generate / discriminate on the "
+        f"card against JAX's import: max |err| {errs[0]:.2e} / {errs[1]:.2e} (rtol 1e-3); "
+        f"{TF1_TRAIN_STEPS} eager rep steps from it at b{BATCH}, loss_gen "
+        f"{float(m['loss_gen'][-1]):.5f}, kernel means {launches[0]} + {launches[1]}; "
+        f"card: {card}")
+    return launches
+
+
+def run_real_data_and_tools(dev, card: str, kernels: list) -> list:
+    """Phase 15; returns its kernel-means launches, [forward, backward]."""
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = [check_real_cifar(dev, card, tmp)]
+    check_kernel_shapes(dev, kernels)
+    parts += [check_simdata(dev, card), check_figure1(dev, card), check_tf1_checkpoint(dev, card)]
+    return [sum(p[i] for p in parts) for i in range(2)]
+
+
 def mesh_rank_main(argv: list) -> int:
     """``chip_smoke.py --mesh-rank KIND RANK WORLD STORE OUT CARD``: one
     rank of phase 13 (``nccl``, ``gloo``; run by ``run_mesh``) or of phase
@@ -2810,11 +3208,13 @@ def main() -> int:
     phase("12 cli", check_conditional_cli)
     mesh_launches = phase("13 mesh", lambda: run_mesh(card))
     fsdp_launches = phase("14 serving and sharding", lambda: run_serving_and_sharding(dev, card))
+    data_launches = phase("15 real data and tools",
+                          lambda: run_real_data_and_tools(dev, card, kernels))
     for i, kernel in enumerate(kernels):
         kernel["launches"] = (sum(launches[i] for launches, _ in runs.values()) + loss_launches[i]
                               + sum(f[i] for f in family_launches) + hd_launches[i]
                               + eval_launches[i] + cond_launches[i] + mesh_launches[i]
-                              + fsdp_launches[i])
+                              + fsdp_launches[i] + data_launches[i])
 
     log(f"[timing] seconds by phase: {json.dumps(seconds)}")
     log(json.dumps({"kernels": kernels}))

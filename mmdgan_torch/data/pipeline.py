@@ -10,8 +10,14 @@ A background thread decodes and batches ahead (``prefetch.background``).
 ``shape2image(..., resize=(h, w))`` resizes on the host with the
 align-corners bilinear matrices of ``models/scaling.py`` (float batches
 only, as in JAX). ``shard`` restricts a pipeline to one rank's share of
-the records (the mesh's per-process feeding). Not ported: the C++ record
-reader (``native.py``, ROADMAP A10).
+the records (the mesh's per-process feeding).
+
+Records are read by the host library of ``data/native.py`` (``use_native``,
+the default, as in JAX), or by the Python codec of ``data/tfrecord.py``
+with ``use_native=False``; both give bitwise-equal batches. Where JAX falls
+back to the Python codec when the library does not build
+(``mmdgan_tpu/data/pipeline.py:132-143``), the port raises: a reader
+quietly many times slower is a fault to see, not to hide (ROADMAP C7).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ class ReadTFRecords:
         buffer_size: int = 10000,
         shuffle_file: bool = False,
         seed: Optional[int] = 0,
+        use_native: bool = True,
         device_decode: bool = False,
     ):
         """:param filename: base name(s); '.tfrecords' appended
@@ -71,6 +78,7 @@ class ReadTFRecords:
         self.num_epoch = num_epoch
         self.buffer_size = buffer_size
         self.rng = np.random.RandomState(seed)
+        self.use_native = use_native
         # device_decode: emit uint8 batches (reshaped/transposed only) and
         # let the device do x/127.5-1 (the train step decodes uint8
         # batches, the same float32 op): 4x fewer bytes to the device
@@ -130,9 +138,25 @@ class ReadTFRecords:
     def _iter_raw(self) -> Iterator[Dict[str, np.ndarray]]:
         """One pass over all files (of this rank's shard), yielding decoded
         examples."""
+        records = TFRecordReader
+        if self.use_native:
+            from mmdgan_torch.data import native
+            try:
+                native.get_lib()
+            except Exception as e:
+                raise RuntimeError(
+                    f"the native record reader did not build ({e}); pass use_native=False "
+                    "for the Python reader") from e
+            # the read buffer sized from the known record size
+            capacity = None
+            if self._image_shape is not None:
+                capacity = int(np.prod(self._image_shape)) + 256
+            elif self.num_features is not None:
+                capacity = self.num_features * 8 + 256
+            records = lambda path: native.NativeRecordIterator(path, capacity=capacity)
         i = 0
         for path in self.filenames:
-            for record in TFRecordReader(path):
+            for record in records(path):
                 if self._shard is not None:
                     n, k = self._shard
                     keep = i % n == k
@@ -142,7 +166,8 @@ class ReadTFRecords:
                 yield self._decode(record)
 
     def _decode(self, record) -> Dict[str, np.ndarray]:
-        ex = parse_example(record)
+        # the native reader yields decoded {'x': bytes, 'y': ...} dicts
+        ex = record if isinstance(record, dict) else parse_example(record)
         x = ex["x"]
         if isinstance(x, (bytes, bytearray)):  # raw uint8 payload
             x = np.frombuffer(x, np.uint8)

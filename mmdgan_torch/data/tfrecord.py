@@ -10,8 +10,9 @@ byte for byte those of the JAX package's writer.
 - tf.Example protobuf subset: Example > Features > map<string, Feature>,
   Feature = BytesList | FloatList | Int64List.
 
-The JAX package's C++ record reader (``native.py``) is not ported
-(ROADMAP A10): this pure-Python reader is the port's only one.
+The pipeline reads through the host library of ``data/native.py`` by
+default; this codec is its ``use_native=False`` reader and the reference
+its writer is held to.
 """
 
 from __future__ import annotations

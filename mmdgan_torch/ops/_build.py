@@ -1,9 +1,10 @@
-"""Build the port's CUDA sources with ``nvcc`` at first use and load them
-with ``ctypes``.
+"""Build the port's native sources at first use and load them with
+``ctypes``: the CUDA kernels (``csrc/*.cu``) with ``nvcc``, the host
+library of the record reader (``csrc/tfrec.cc``) with ``g++``.
 
-Each ``csrc/*.cu`` compiles on its own into a shared library with a plain
-C interface, under ``build/`` at the repository root, named by a hash of
-its source and flags: an edited source builds anew, an unchanged one loads
+Each source compiles on its own into a shared library with a plain C
+interface, under ``build/`` at the repository root, named by a hash of its
+source and flags: an edited source builds anew, an unchanged one loads
 from the file. ``utils/compilation_cache.py`` moves that directory to a
 cache shared by checkouts and processes (``CACHE_ENV`` names it, so child
 processes inherit it). Nothing here runs at import time, so the CPU tests
@@ -27,6 +28,9 @@ CACHE_ENV = "MMDGAN_TORCH_COMPILATION_CACHE"
 CACHE_MIN_SECONDS_ENV = "MMDGAN_TORCH_CACHE_MIN_COMPILE_SECONDS"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# No -march=native: the hash keys the source and these flags, not the host's
+# CPU, and a compilation cache may share the build directory between hosts.
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -40,6 +44,24 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the host library of the record reader needs a "
+                       "C++ compiler (set CXX or put g++ on PATH)")
+
+
+def _flags(source: str) -> tuple:
+    return HOST_FLAGS if source.endswith(".cc") else NVCC_FLAGS
+
+
+def _command(source: str, out: Path) -> list:
+    if source.endswith(".cc"):
+        return [_cxx(), *HOST_FLAGS, str(CSRC / source), "-o", str(out)]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / source)]
+
+
 def build_dir() -> Path:
     """The compilation cache's directory when one is enabled, else ``build/``."""
     cache = os.environ.get(CACHE_ENV)
@@ -49,7 +71,7 @@ def build_dir() -> Path:
 def library_path(source: str, directory: Path = None) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
     src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(source)).encode()).hexdigest()[:16]
     return (directory or build_dir()) / f"{Path(source).stem}-{digest}.so"
 
 
@@ -65,11 +87,11 @@ def build(source: str) -> Path:
         return local
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = _command(source, tmp)
     start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source} (exit {proc.returncode}):\n"
+        raise RuntimeError(f"{Path(cmd[0]).name} failed on {source} (exit {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     if (out != local and time.perf_counter() - start
             < float(os.environ.get(CACHE_MIN_SECONDS_ENV, 0.0))):

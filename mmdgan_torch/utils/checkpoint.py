@@ -14,19 +14,27 @@ Under a mesh only rank 0 writes, behind a barrier, and every rank reads
 the same file. A sharded state (``DataParallel.shard_state``) is written
 whole, gathered by every rank first, and a checkpoint restores into a
 state of either layout: a sharded one takes its rank's pieces, so a run
-saved under fsdp resumes replicated and the other way round. Reading the
-JAX package's orbax checkpoints is not ported.
+saved under fsdp resumes replicated and the other way round.
+
+``print_tensor_in_ckpt`` and ``rollback`` inspect and evaluate a
+checkpoint without a training loop (``mmdgan_tpu/utils/checkpoint.py:39-90``,
+graph_func.py:419-443, 606-638). ``import_jax_state`` writes a JAX
+``TrainState``, restored to numpy by a process that has orbax, as a
+checkpoint the port's ``Agent`` resumes from; the package itself reads no
+orbax files (README, "Importing checkpoints").
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from mmdgan_torch.train.state import TrainState, loss_state_leaves, tree_leaves
+from mmdgan_torch.ops.losses import LossState
+from mmdgan_torch.train.optim import OptState
+from mmdgan_torch.train.state import TrainState, loss_state_leaves, tree_leaves, tree_map
 
 _NAME = re.compile(r"^ckpt-(\d+)\.pt$")
 
@@ -63,6 +71,19 @@ def state_dict(ts: TrainState) -> Dict:
             "step": ts.step, "rng": ts.rng.get_state()}
 
 
+def _write(ckpt_folder: str, saved: Dict, step: int, max_to_keep: int) -> str:
+    """``saved`` as ``ckpt-<step>.pt``, written under a temporary name and
+    renamed; the oldest beyond ``max_to_keep`` removed."""
+    path = ckpt_path(ckpt_folder, step)
+    os.makedirs(ckpt_folder, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(saved, tmp)
+    os.replace(tmp, path)
+    for old in list_ckpt_steps(ckpt_folder)[:-max_to_keep]:
+        os.remove(ckpt_path(ckpt_folder, old))
+    return path
+
+
 def save(ckpt_folder: str, ts: TrainState, step: int, max_to_keep: int = 2, dp=None) -> str:
     """Write ``ts`` as the checkpoint of ``step``; keep the newest
     ``max_to_keep``. Returns the file's path. With a mesh (``dp``) rank 0
@@ -72,15 +93,19 @@ def save(ckpt_folder: str, ts: TrainState, step: int, max_to_keep: int = 2, dp=N
     if ts.layout is not None:
         ts = ts.layout.gathered(ts)
     if dp is None or dp.is_main:
-        os.makedirs(ckpt_folder, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(state_dict(ts), tmp)
-        os.replace(tmp, path)
-        for old in list_ckpt_steps(ckpt_folder)[:-max_to_keep]:
-            os.remove(ckpt_path(ckpt_folder, old))
+        _write(ckpt_folder, state_dict(ts), step, max_to_keep)
     if dp is not None:
         dp.barrier()
     return path
+
+
+def _set_rng(rng: torch.Generator, saved: Dict) -> None:
+    """The generator's saved state; an imported checkpoint holds a seed
+    instead (``import_jax_state``), which fits a generator on any device."""
+    if "rng" in saved:
+        rng.set_state(saved["rng"])
+    else:
+        rng.manual_seed(int(saved["rng_seed"]))
 
 
 def restore_into(ts: TrainState, path: str) -> TrainState:
@@ -104,5 +129,105 @@ def restore_into(ts: TrainState, path: str) -> TrainState:
                 raise ValueError(f"{path}: {tuple(src.shape)} {src.dtype} does not fit "
                                  f"{tuple(dst.shape)} {dst.dtype}")
             dst.copy_(src)
-    ts.rng.set_state(saved["rng"])
+    _set_rng(ts.rng, saved)
     return ts
+
+
+def _described(tree, prefix: str, out: Dict) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _described(v, f"{prefix}/{k}" if prefix else str(k), out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _described(v, f"{prefix}[{i}]", out)
+    else:
+        shape = getattr(tree, "shape", None)
+        out[prefix] = (tuple(shape) if shape is not None else None,
+                       str(getattr(tree, "dtype", type(tree).__name__)))
+
+
+def print_tensor_in_ckpt(ckpt_folder: str, step: Optional[int] = None) -> Dict:
+    """Print (and return) {path: (shape, dtype)} of everything stored in the
+    latest (or the given step's) checkpoint of a folder
+    (graph_func.py:419-443); {} when there is none."""
+    step = get_ckpt(ckpt_folder, step)
+    if step is None:
+        print(f"No checkpoint found in {ckpt_folder}")
+        return {}
+    out: Dict = {}
+    _described(torch.load(ckpt_path(ckpt_folder, step), map_location="cpu", weights_only=True),
+               "", out)
+    for path, (shape, dtype) in sorted(out.items()):
+        print(f"{path}: shape={shape} dtype={dtype}")
+    return out
+
+
+def _state_from_file(path: str, device) -> TrainState:
+    """The TrainState a checkpoint holds, on ``device``."""
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    to = lambda tree: tree_map(lambda v: v.to(device), tree)
+    opt = lambda s: OptState(count=s["count"].to(device),
+                             slots={k: to(v) for k, v in s.items() if k != "count"})
+    ts = TrainState(params=to(saved["params"]), net_state=to(saved["net_state"]),
+                    loss_state=LossState(*(t.to(device) for t in saved["loss_state"])),
+                    opt_state_dis=opt(saved["opt_state_dis"]),
+                    opt_state_gen=opt(saved["opt_state_gen"]),
+                    step=saved["step"].to(device), rng=torch.Generator(device))
+    _set_rng(ts.rng, saved)
+    return ts
+
+
+def rollback(ts_or_model: Any, ckpt_folder: str, fn: Optional[Callable] = None,
+             ckpt_step: Optional[int] = None) -> Tuple[Any, int]:
+    """Restore the latest (or ``ckpt_step``'s) checkpoint into a fresh state
+    and evaluate ``fn(state)`` there (graph_func.py:606-638, restoring into
+    a fresh graph to evaluate a var_list); returns ``(value, step)``, the
+    state itself when ``fn`` is None.
+
+    :param ts_or_model: a TrainState or an ``SNGan``, whose device the
+        checkpoint's state is loaded to (neither is changed)
+    """
+    step = get_ckpt(ckpt_folder, ckpt_step)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_folder}")
+    device = (ts_or_model.step.device if isinstance(ts_or_model, TrainState)
+              else ts_or_model.device)
+    restored = _state_from_file(ckpt_path(ckpt_folder, step), device)
+    return (fn(restored) if fn is not None else restored), step
+
+
+def import_jax_state(model, jax_state: Any, ckpt_folder: str, step: Optional[int] = None,
+                     optimizers: Optional[Tuple] = None, seed: int = 0) -> str:
+    """Write the JAX package's ``TrainState``, as numpy trees, as the port's
+    checkpoint ``ckpt-<step>.pt`` in ``ckpt_folder``; returns its path.
+
+    The file loads on any device: its tensors are on the CPU, and it holds
+    ``seed`` for the z generator in place of a generator state (JAX's key
+    cannot be carried over), so a run on the card resumes from a file
+    written on a machine without one.
+
+    :param model: the port's ``SNGan`` of the same architecture (on any
+        device; the CPU where JAX runs)
+    :param jax_state: the JAX state after ``jax.device_get`` (an object or
+        a dict with ``params``, ``net_state``, ``opt_state_dis``,
+        ``opt_state_gen``, ``loss_state`` and ``step``), as JAX's
+        ``rollback`` restores it
+    :param step: the checkpoint's step; the state's own by default
+    :param optimizers: the port's ``(opt_dis, opt_gen)`` the run resumes
+        with, which say which slots to keep (``jax_params_to_torch``)
+    """
+    from mmdgan_torch.utils.jax_bridge import jax_params_to_torch
+
+    get = (jax_state.get if isinstance(jax_state, dict)
+           else lambda name: getattr(jax_state, name))
+    params, net_state, (opt_dis, opt_gen), loss_state = jax_params_to_torch(
+        model, get("params"), get("net_state"), (get("opt_state_dis"), get("opt_state_gen")),
+        device="cpu", loss_state=get("loss_state"), optimizers=optimizers)
+    saved = int(get("step"))
+    ts = TrainState(params=params, net_state=net_state, loss_state=loss_state,
+                    opt_state_dis=opt_dis, opt_state_gen=opt_gen, step=saved,
+                    rng=torch.Generator())
+    out = state_dict(ts)
+    del out["rng"]
+    out["rng_seed"] = torch.tensor(int(seed), dtype=torch.int64)
+    return _write(ckpt_folder, out, saved if step is None else step, max_to_keep=1 << 30)
