@@ -169,8 +169,8 @@ Phases, each fatal on failure:
      kernel-means launches per step); then the cifar CLI in this process
      over the records (``--data-dir``, ``--skip-metrics``), its
      metrics.jsonl read back with ``utils/events.py``;
-   - 15b: both kernels against their plain versions at (128, 8) and
-     (128, 2), with phase 3's tolerances, timed and bounded;
+   - 15b: both kernels against their plain versions at (128, 8),
+     (128, 2) and (64, 8), with phase 3's tolerances, timed and bounded;
    - 15c: ``SimData`` learning on the card (tests/test_integration.py's
      recipe, 800 f32 steps in graphed windows, one more replay profiled):
      MMD below 0.7 of its start, the mean within 0.25 of mu;
@@ -2757,7 +2757,8 @@ CIFAR_FILES, CIFAR_PER_FILE = 5, 10000      # data_batch_{1..5}.bin, 3,073 bytes
 READER_WINDOWS = 8                  # timed host-fed windows per reader and turn
 COMPARE_BATCHES = 256               # batches held bitwise between the two readers
 CLI_STEPS = 64                      # the CLI's chunk over the converted records
-NEW_SHAPES = [(128, 8), (128, 2)]   # the SimData path's scores, figure1's particles
+# the SimData path's scores, figure1's particles, the TF1-imported narrow model's (15e)
+NEW_SHAPES = [(128, 8), (128, 2), (64, 8)]
 SIM_STEPS, SIM_BATCH = 800, 128     # tests/test_integration.py:46-75
 FIG1_STEPS, FIG1_CHECK = 600, 10
 TF1_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",

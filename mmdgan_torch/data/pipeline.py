@@ -138,7 +138,7 @@ class ReadTFRecords:
     def _iter_raw(self) -> Iterator[Dict[str, np.ndarray]]:
         """One pass over all files (of this rank's shard), yielding decoded
         examples."""
-        records = TFRecordReader
+        records = lambda path: map(parse_example, TFRecordReader(path))
         if self.use_native:
             from mmdgan_torch.data import native
             try:
@@ -165,9 +165,7 @@ class ReadTFRecords:
                         continue
                 yield self._decode(record)
 
-    def _decode(self, record) -> Dict[str, np.ndarray]:
-        # the native reader yields decoded {'x': bytes, 'y': ...} dicts
-        ex = record if isinstance(record, dict) else parse_example(record)
+    def _decode(self, ex: Dict) -> Dict[str, np.ndarray]:
         x = ex["x"]
         if isinstance(x, (bytes, bytearray)):  # raw uint8 payload
             x = np.frombuffer(x, np.uint8)

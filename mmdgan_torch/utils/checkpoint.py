@@ -26,6 +26,7 @@ orbax files (README, "Importing checkpoints").
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -33,7 +34,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from mmdgan_torch.ops.losses import LossState
-from mmdgan_torch.train.optim import OptState
+from mmdgan_torch.train.optim import OptState, multi_opt_config
 from mmdgan_torch.train.state import TrainState, loss_state_leaves, tree_leaves, tree_map
 
 _NAME = re.compile(r"^ckpt-(\d+)\.pt$")
@@ -162,19 +163,16 @@ def print_tensor_in_ckpt(ckpt_folder: str, step: Optional[int] = None) -> Dict:
     return out
 
 
-def _state_from_file(path: str, device) -> TrainState:
-    """The TrainState a checkpoint holds, on ``device``."""
-    saved = torch.load(path, map_location="cpu", weights_only=True)
-    to = lambda tree: tree_map(lambda v: v.to(device), tree)
-    opt = lambda s: OptState(count=s["count"].to(device),
-                             slots={k: to(v) for k, v in s.items() if k != "count"})
-    ts = TrainState(params=to(saved["params"]), net_state=to(saved["net_state"]),
-                    loss_state=LossState(*(t.to(device) for t in saved["loss_state"])),
-                    opt_state_dis=opt(saved["opt_state_dis"]),
-                    opt_state_gen=opt(saved["opt_state_gen"]),
-                    step=saved["step"].to(device), rng=torch.Generator(device))
-    _set_rng(ts.rng, saved)
-    return ts
+def _fresh(ts: TrainState) -> TrainState:
+    """A state of ``ts``'s structure, layout and device in buffers of its own."""
+    clone = lambda tree: tree_map(lambda t: t.detach().clone(), tree)
+    opt = lambda s: OptState(count=s.count.clone(),
+                             slots={k: clone(v) for k, v in s.slots.items()})
+    return dataclasses.replace(
+        ts, params=clone(ts.params), net_state=clone(ts.net_state),
+        loss_state=LossState(*(t.clone() for t in loss_state_leaves(ts.loss_state))),
+        opt_state_dis=opt(ts.opt_state_dis), opt_state_gen=opt(ts.opt_state_gen),
+        step=ts.step.clone(), rng=torch.Generator(ts.step.device))
 
 
 def rollback(ts_or_model: Any, ckpt_folder: str, fn: Optional[Callable] = None,
@@ -184,25 +182,30 @@ def rollback(ts_or_model: Any, ckpt_folder: str, fn: Optional[Callable] = None,
     a fresh graph to evaluate a var_list); returns ``(value, step)``, the
     state itself when ``fn`` is None.
 
-    :param ts_or_model: a TrainState or an ``SNGan``, whose device the
-        checkpoint's state is loaded to (neither is changed)
+    :param ts_or_model: a TrainState, whose structure, layout and device
+        the fresh state takes, or an ``SNGan``, for a checkpoint of the
+        default optimizers (Adam, float32 moments; ``multi_opt_config``) on
+        the model's device; neither is changed
     """
+    from mmdgan_torch.train.step import init_train_state
+
     step = get_ckpt(ckpt_folder, ckpt_step)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_folder}")
-    device = (ts_or_model.step.device if isinstance(ts_or_model, TrainState)
-              else ts_or_model.device)
-    restored = _state_from_file(ckpt_path(ckpt_folder, step), device)
+    fresh = (_fresh(ts_or_model) if isinstance(ts_or_model, TrainState)
+             else init_train_state(ts_or_model, 0, *multi_opt_config([0.0, 0.0]),
+                                   device=ts_or_model.device))
+    restored = restore_into(fresh, ckpt_path(ckpt_folder, step))
     return (fn(restored) if fn is not None else restored), step
 
 
 def import_jax_state(model, jax_state: Any, ckpt_folder: str, step: Optional[int] = None,
-                     optimizers: Optional[Tuple] = None, seed: int = 0) -> str:
+                     optimizers: Optional[Tuple] = None) -> str:
     """Write the JAX package's ``TrainState``, as numpy trees, as the port's
     checkpoint ``ckpt-<step>.pt`` in ``ckpt_folder``; returns its path.
 
     The file loads on any device: its tensors are on the CPU, and it holds
-    ``seed`` for the z generator in place of a generator state (JAX's key
+    the seed 0 for the z generator in place of a generator state (JAX's key
     cannot be carried over), so a run on the card resumes from a file
     written on a machine without one.
 
@@ -229,5 +232,5 @@ def import_jax_state(model, jax_state: Any, ckpt_folder: str, step: Optional[int
                     rng=torch.Generator())
     out = state_dict(ts)
     del out["rng"]
-    out["rng_seed"] = torch.tensor(int(seed), dtype=torch.int64)
+    out["rng_seed"] = torch.tensor(0, dtype=torch.int64)
     return _write(ckpt_folder, out, saved if step is None else step, max_to_keep=1 << 30)
