@@ -1,9 +1,23 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``mmdgan_torch``) on one NVIDIA GPU and check it.
 
-Run from the repository root, with no arguments:
+Run from the repository root, with no arguments (every phase):
 
     python3 chip_smoke.py
+
+or with ``--phases 3,15,16`` for some of them (phase 3 always runs: the
+kernels line needs it; that line sums the launches of the phases that ran,
+named on the line after the timing). The main process's log lines start
+with the seconds since it started.
+
+Order: the parts of the chosen phases that time things run first, in
+phase order, alone on the card. Then the checks that time nothing (4, 6,
+7's and 12b's bitwise runs, 9's and 10's determinism, 10's accumulation,
+11's optimizer windows, 12's card-vs-CPU models, 16d) run in this process
+while the phases' subprocesses that time nothing run beside them: the CLI
+smokes of 8, 10 and 12, 13b and 13d (its resumed CLI started by a thread
+when the fresh one ends), 14's gloo ranks and step profiler, and 16c's
+checkpoint run. Last, 16c's rehearsal.
 
 Phases, each fatal on failure:
 
@@ -16,7 +30,9 @@ Phases, each fatal on failure:
    term of ``kernel_means_backward_atol``) at (64, 16), (23, 5) and
    (256, 16) and on a saturated input whose raw gen-gen distances go
    below 0, two launches of each bitwise equal, and the autograd path of
-   ``fused_kernel_means`` against autograd of the plain means;
+   ``fused_kernel_means`` against autograd of the plain means; then both
+   at phase 16b's smallest and largest batch, (16, 16) and (256, 16),
+   held, timed and bounded as at 15b's shapes;
 4. reference: a narrow float32 model, three steps on the card (kernel path)
    against the same three steps on the CPU (plain path), after a first
    'rmb' step that both run (step 0 is degenerate), TF32 off, for
@@ -31,8 +47,10 @@ Phases, each fatal on failure:
    the profiler's count of kernel-means kernels is the launches reported,
    one forward and two backward per step in every window (the step's two
    ``autograd.grad`` calls); device busy time, idle share and activities
-   per step of a replayed and an eager window. Then unprofiled windows
-   give steps/s of both; finite metrics, parameters, SN vectors and BN
+   per step of a replayed and an eager window. The profiles are read from
+   the profiler's raw results; in rep's second window those hold the
+   same device activities as ``prof.events()``, name for name, with the
+   same total time. Then unprofiled windows give steps/s of both; finite metrics, parameters, SN vectors and BN
    statistics changed;
 6. determinism, under deterministic algorithms: graphed and eager 'rmb'
    windows fed the same code batches end bitwise equal, two graphed runs
@@ -150,14 +168,16 @@ Phases, each fatal on failure:
      the non-mesh window in turns, one FSDP window bitwise equal to the
      replicated mesh's under deterministic algorithms, and
      ``export_generator(dp=)`` at the rank; beside it a cold nvcc build
-     into a new compilation cache, then a second process's cache hit;
+     into a new compilation cache, then, alone, a second process's cache
+     hit;
    - 14c, two gloo ranks sharing the card under fsdp: the narrow f32 rep
      and rmb_gp steps equal one device within JAX's mesh bounds, the
      gathered replicas bitwise identical, and the full-width CIFAR-10
      state's persistent parameter + Adam bytes per rank against the
      replicated layout's; 14d, four gloo ranks as a (2, 2) mesh, the
-     narrow rep steps likewise; beside them
-     ``python -m mmdgan_torch.tools.profile_step --arch cifar``.
+     narrow rep steps likewise; beside them ``python -m
+     mmdgan_torch.tools.profile_step --arch cifar`` (a smoke of the tool:
+     its times there are not a measurement).
 15. real data, the data and checkpoint utilities and the learning tools:
    - 15a: five CIFAR-10 binary batches (50,000 seeded records of 3,073
      bytes) converted by ``data/converters.py`` (``save_label=False``);
@@ -179,6 +199,27 @@ Phases, each fatal on failure:
    - 15e: ``tests/data/tf1_narrow`` (a TF1 bundle written by TF, NCHW)
      read with no TensorFlow into a model on the card, its outputs against
      JAX's committed ones at rtol 1e-3, then 16 steps from it.
+16. the last four tools (``mmdgan_torch/tools``):
+   - 16a: ``python -m mmdgan_torch.tools.preflight`` exits 0 with a
+     healthy line for the GPU (launch latency, bf16 matmul rate,
+     pageable and pinned bandwidth both ways);
+   - 16b: ``tools/scaling_study.py``'s sweeps on the full-width CIFAR-10
+     rep b64 bf16 model: K = 1..64 at batch 64, then batch 16..256 at K=16,
+     each point a fresh state, an eager window, the capture and 192 timed
+     steps (the tool's default is 384); K = 8, 16 and 32 again, against their first readings; 1 + 2
+     kernel-means launches per step in the counters of every eager window
+     and capture and in one profiled replay per K; both Markdown tables;
+   - 16c: the fake inception graph (``tools/make_fake_inception.py``,
+     9.6 MB, 299x299 in, pool_3 2048 wide); a 32-step rmb
+     ``tools/quality_smoke.py --ckpt-dir`` run writes a checkpoint, beside
+     16d; ``tools/inception_rehearsal.py`` restores it and runs 781 x 64
+     real and generated images per side through the graph on the card (IS,
+     FID, the classifier's images/s, the seconds by part), its executor
+     on the card within a relative 1e-4 of the CPU's;
+   - 16d: ``tools/imagenet_prep.py`` ``extract`` on a train tar written
+     here, and ``ref-stats`` over three classes of 300 seeded 64x64 rows
+     through the fake graph, on the card and on the CPU: every class's
+     mean and covariance agree at rtol 1e-3.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -188,16 +229,22 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
+from functools import cache, partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -230,7 +277,7 @@ from mmdgan_torch.train.step import (  # noqa: E402
     init_train_state,
     same_class_tables,
 )
-from mmdgan_torch.tools.profile_step import window_timeline  # noqa: E402
+from mmdgan_torch.tools.profile_step import check_raw_activities, window_timeline  # noqa: E402
 from mmdgan_torch.train.trainer import Agent  # noqa: E402
 
 BATCH, SCAN_K = 64, 16              # bench.py's cifar line
@@ -250,7 +297,7 @@ KERNEL_LOSSES = ("rep", "rep_gp", "rep_ds", "rmb", "rmb_gp", "rmb_ds")
 STATEFUL_LOSSES = ("mmd_g_mix", "sgm", "rand_g_mix", "sym_rg_mix", "instance_noise")
 PROFILED_LOSSES = KERNEL_LOSSES + ("logistic", "mmd_g", "rand_g_mix", "wasserstein")
 HD_SIZE, HD_ROWS, HD_MICRO = 512, 256, (1, 8)   # bench.py's hd512 line
-HD_CALLS = 2                        # timed windows of each hd512 run
+HD_CALLS = 1                        # timed windows of each hd512 run
 ACCUM_M = 4                         # the accumulated step of phase 10's checks
 IMBALANCED = [1, 5]
 EVAL_STEPS, EVAL_BATCHES = 64, 781  # phase 11: the reference protocol's 781 x 64 samples
@@ -261,6 +308,7 @@ OPTIMIZER_CASES = (("sgd", False, 1e-2), ("momentum", False, 1e-2), ("rmsprop", 
                    ("adam", False, 1e-5), ("adam_tf1", False, 1e-5), ("adam", True, 1e-5))
 OPT_WINDOWS, OPT_BATCH = 3, 4
 OPT_MEASURE_CALLS = 4               # timed windows per optimizer (64 steps)
+PLAIN_CALLS = 200                   # timed calls of a plain version (each 0.5-3 ms)
 VAL_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-8)
 # H100 SXM data sheet: HBM bandwidth, fp32 rate outside the tensor cores
@@ -272,8 +320,11 @@ PEAK_FP32_PER_S = 67e12
 PEAK_SFU_PER_S = PEAK_FP32_PER_S / 16
 
 
+_START = []   # the main process's start: its log lines begin with the seconds since
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"{time.perf_counter() - _START[0]:7.1f} {msg}" if _START else msg, flush=True)
 
 
 def scores(b: int, d: int, seed: int, device) -> tuple:
@@ -408,7 +459,7 @@ def check_kernel_means(dev) -> dict:
     sg, sx = scores(b, d, seed=0, device=dev)
     with torch.no_grad():
         ms = cuda_ms(lambda: cuda_mmd.kernel_means_cuda(sg, sx, 1.0), 2000)
-        plain_ms = cuda_ms(lambda: cuda_mmd.kernel_means_reference(sg, sx, 1.0), 2000)
+        plain_ms = cuda_ms(lambda: cuda_mmd.kernel_means_reference(sg, sx, 1.0), PLAIN_CALLS)
         device_ms = graph_ms(lambda: cuda_mmd.kernel_means_cuda(sg, sx, 1.0))
         plain_device_ms = graph_ms(lambda: cuda_mmd.kernel_means_reference(sg, sx, 1.0))
     bound, bound_by, pipe = kernel_means_bound_ms(b, d)
@@ -464,9 +515,10 @@ def check_kernel_means_backward(dev) -> dict:
     ct = cts["loss_gen"]
     a, c = sg.clone().requires_grad_(True), sx.clone().requires_grad_(True)
     ms = cuda_ms(lambda: cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0), 2000)
-    plain_ms = cuda_ms(lambda: cuda_mmd.kernel_means_backward_reference(sg, sx, ct, 1.0), 2000)
+    plain_ms = cuda_ms(lambda: cuda_mmd.kernel_means_backward_reference(sg, sx, ct, 1.0),
+                       PLAIN_CALLS)
     autograd_ms = cuda_ms(lambda: torch.autograd.grad(
-        cuda_mmd.kernel_means_reference(a, c, 1.0), (a, c), ct), 500)
+        cuda_mmd.kernel_means_reference(a, c, 1.0), (a, c), ct), PLAIN_CALLS)
     device_ms = graph_ms(lambda: cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0))
     plain_device_ms = graph_ms(lambda: cuda_mmd.kernel_means_backward_reference(sg, sx, ct, 1.0))
     bound, bound_by, pipe = kernel_means_backward_bound_ms(b, d)
@@ -625,7 +677,10 @@ def run_main_path(dev, loss_type: str, card: str) -> tuple:
     state0 = [v.clone() for v in tree_leaves(ts.net_state)]
     torch.cuda.reset_peak_memory_stats(dev)
     forward.launches = backward.launches = 0
-    graphed = [_profiled_window(multi, ts, batches, f"{loss_type} graphed window {i}")
+    # the second window (the capture and its first replay) also holds the
+    # profiler's raw reader against prof.events()
+    graphed = [_profiled_window(multi, ts, batches, f"{loss_type} graphed window {i}",
+                                check_raw=loss_type == "rep" and i == 1)
                for i in range(COUNTED_GRAPHED)]
     eager = [_profiled_window(eager_multi, ts_eager, batches, f"{loss_type} eager window {i}")
              for i in range(COUNTED_EAGER)]
@@ -756,8 +811,9 @@ def _replayed_codes(dev) -> list:
     return out
 
 
-def _profiled_window(multi, ts, batches, what: str, per_step: dict = KERNEL_EVENTS) -> dict:
-    """One window (SCAN_K steps) under torch.profiler. Returns the
+def _profiled_window(multi, ts, batches, what: str, per_step: dict = KERNEL_EVENTS,
+                     k: int = SCAN_K, check_raw: bool = False) -> dict:
+    """One window (``k`` steps, SCAN_K by default) under torch.profiler. Returns the
     kernel-means launches in it (``per_step`` per step, by default one
     forward and two backward, asserted) and its device timeline: the busy
     time per step (the sum of its kernels' times, and the union of their
@@ -771,26 +827,28 @@ def _profiled_window(multi, ts, batches, what: str, per_step: dict = KERNEL_EVEN
     graph the same captured kernels, so a kernel that does not run is
     missing from every step; a window that counts short is logged and the
     next window of the same K-step function is profiled in its place and
-    must count exactly. ``windows`` says how many windows ran."""
-    out = _profile(multi, ts, batches, what)
+    must count exactly. ``windows`` says how many windows ran.
+    ``check_raw``: see ``_profile``."""
+    out = _profile(multi, ts, batches, what, k, check_raw)
     out["windows"] = 1
-    short = {k: out[k] for k, n in per_step.items() if out[k] < n * SCAN_K}
+    short = {name: out[name] for name, n in per_step.items() if out[name] < n * k}
     if short:
-        log(f"[profile] {what}: the profiler counted {short} in {SCAN_K} steps "
-            f"({out['activities'] * SCAN_K:.0f} device activities); profiling the next window")
-        out = _profile(multi, ts, batches, what)
+        log(f"[profile] {what}: the profiler counted {short} in {k} steps "
+            f"({out['activities'] * k:.0f} device activities); profiling the next window")
+        out = _profile(multi, ts, batches, what, k, check_raw)
         out["windows"] = 2
     for kernel, n in per_step.items():
-        assert out[kernel] == n * SCAN_K, (
-            f"{what}: {out[kernel]} {kernel} launches in {SCAN_K} steps")
+        assert out[kernel] == n * k, f"{what}: {out[kernel]} {kernel} launches in {k} steps"
     return out
 
 
-def _profile(multi, ts, batches, what: str) -> dict:
+def _profile(multi, ts, batches, what: str, k: int = SCAN_K, check_raw: bool = False) -> dict:
     """One window under torch.profiler, read by ``profile_step.window_timeline``
     (busy, union, span, activities, time and calls by kernel name, the
     kernel-means launches, the host's ``nccl:`` events) and its traced
-    wall time per step."""
+    wall time per step. ``check_raw``: the device activities that
+    ``window_timeline`` reads from the profiler's raw results must be those
+    of ``prof.events()``, name for name, with the same total time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -800,10 +858,16 @@ def _profile(multi, ts, batches, what: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     try:
-        out = window_timeline(prof, SCAN_K, torch.device("cuda"), tuple(KERNEL_EVENTS))
+        out = window_timeline(prof, k, torch.device("cuda"), tuple(KERNEL_EVENTS))
     except RuntimeError as e:
         raise AssertionError(f"{e} in the {what}") from None
-    out["wall"] = wall_ms / SCAN_K
+    out["wall"] = wall_ms / k
+    if check_raw:
+        start = time.perf_counter()
+        same = check_raw_activities(prof, torch.autograd.DeviceType.CUDA)
+        log(f"[profile] {what}: the raw results and prof.events() hold the same "
+            f"{same['activities']} device activities, name for name, {same['ns']} ns in all "
+            f"(prof.events() built in {time.perf_counter() - start:.2f} s)")
     return out
 
 
@@ -846,20 +910,23 @@ def run_agent(dev, out_dir: str, name: str, data: dict, max_step: int, sampling:
     return ts, max_step / (time.perf_counter() - start)
 
 
-def check_trainer(dev) -> None:
-    """Phase 7: the training runtime at full width on a CIFAR-sized
-    50,000 x 32 x 32 x 3 uint8 dataset from seed 0, resident on the card:
-    shuffled epochs (781 batches each) over 1,600 steps, which crosses two
-    epoch boundaries, with a checkpoint, then a new Agent that restores
-    it and runs 160 more; under deterministic algorithms, 800 straight
-    steps against 400 + restore + 400, and graphed against eager
-    device-data windows of both samplings (``_device_data_ends``), all
-    bitwise; 320 uniform steps; 40
-    host-fed single steps (``Agent.train``), the last 5 traced; then the
-    steady-state steps/s of graphed device-data windows."""
+def trainer_dataset(dev) -> tuple:
+    """A CIFAR-sized 50,000 x 32 x 32 x 3 uint8 dataset from seed 0, on the
+    host and resident on the card."""
     data = {"x": np.random.RandomState(0).randint(0, 256, (AGENT_ROWS, 32, 32, 3), np.uint8),
             "y": None}
-    data_x = torch.tensor(data["x"], device=dev)
+    return data, torch.tensor(data["x"], device=dev)
+
+
+def check_trainer(dev, data: dict, data_x) -> None:
+    """Phase 7's checks: the training runtime at full width on
+    ``trainer_dataset``: shuffled epochs (781 batches each) over 1,600
+    steps, which crosses two epoch boundaries, with a checkpoint, then a
+    new Agent that restores it and runs 160 more; under deterministic
+    algorithms, 800 straight steps against 400 + restore + 400, and graphed
+    against eager device-data windows of both samplings
+    (``_device_data_ends``), all bitwise; 320 uniform steps; 40 host-fed
+    single steps (``Agent.train``), the last 5 traced."""
     mib = data["x"].nbytes / 2**20
     with tempfile.TemporaryDirectory() as out:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -919,6 +986,11 @@ def check_trainer(dev) -> None:
         assert int(ts.step) == 40 and os.path.getsize(trace) > 0
     log("[trainer] Agent.train, host-fed single steps through the prefetcher: 40 steps, the "
         "last 5 traced by torch.profiler into trace.json")
+
+
+def trainer_rates(dev, data: dict, data_x) -> None:
+    """Phase 7's measurement: the steady-state steps/s of graphed
+    device-data windows over ``trainer_dataset``, both samplings."""
     rates = {}
     for sampling in ("shuffled_epochs", "uniform"):
         model = SNGan(cifar_architecture(), loss_type="rep")
@@ -954,14 +1026,12 @@ def _device_data_ends(dev, data_x, sampling: str) -> tuple:
     return tuple(ends)
 
 
-def run_clis(runs: list, tmp: str) -> None:
+def start_clis(runs: list, tmp: str) -> list:
     """Each ``(module, args, what)`` as ``python -m
     mmdgan_torch.experiments.<module> args --out-dir <its own folder>`` in
-    a subprocess, all started together (their start-up is host work); each
-    must exit 0 and print its throughput line. Every process is ended
-    before this returns."""
+    a subprocess, all started together (their start-up is host work);
+    ``finish_clis`` waits for them."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    start = time.perf_counter()
     procs = []
     try:
         for i, (module, args, what) in enumerate(runs):
@@ -970,6 +1040,26 @@ def run_clis(runs: list, tmp: str) -> None:
                 [sys.executable, "-m", f"mmdgan_torch.experiments.{module}", *args,
                  "--out-dir", os.path.join(tmp, f"run{i}")],
                 cwd=repo, stdout=log_file, stderr=subprocess.STDOUT, text=True)))
+    except BaseException:
+        _stop(procs)
+        raise
+    return procs
+
+
+def _stop(procs: list) -> None:
+    """Kill what still runs of ``(..., log file, process)`` and close the logs."""
+    for *_, log_file, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_file.close()
+
+
+def finish_clis(procs: list) -> None:
+    """Each process of ``start_clis`` must exit 0 and print its throughput
+    line; every process is ended before this returns."""
+    start = time.perf_counter()
+    try:
         for module, what, log_file, proc in procs:
             rc = proc.wait(timeout=400)
             log_file.seek(0)
@@ -977,32 +1067,26 @@ def run_clis(runs: list, tmp: str) -> None:
             assert rc == 0, f"{module} CLI ({what}) exited {rc}:\n{out[-4000:]}"
             lines = [ln for ln in out.splitlines() if "train_steps_per_sec" in ln]
             assert lines, f"{module} CLI ({what}) printed no throughput line"
-            log(f"[cli] {module}, {what}: exit 0 within {time.perf_counter() - start:.1f} s of "
-                f"the start; {lines[-1]}")
+            log(f"[cli] {module}, {what}: exit 0, {time.perf_counter() - start:.1f} s after "
+                f"the wait began; {lines[-1]}")
     finally:
-        for _, _, log_file, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log_file.close()
+        _stop(procs)
 
 
-def check_cli() -> None:
-    """Phase 8: ``python -m mmdgan_torch.experiments.cifar`` in two
-    subprocesses side by side, host-fed on synthetic data, and over a
-    tfrecord of 4,096 seeded images (made by the port's writer) resident
-    on the card."""
-    with tempfile.TemporaryDirectory() as tmp:
-        x = np.random.RandomState(1).randint(0, 256, (4096, 3, 32, 32), np.uint8)
-        np_to_tfrecords(x, None, os.path.join(tmp, "cifar"))
-        common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1",
-                  "--query-step", "160"]
-        # host-fed: 20 graphed windows and 8 single steps
-        run_clis([("cifar", common + ["--synthetic-data", "--steps-per-chunk", "328"],
-                   "synthetic, host-fed"),
-                  ("cifar", common + ["--device-dataset", "--sampling", "shuffled_epochs",
-                                      "--data-dir", tmp, "--steps-per-chunk", "320"],
-                   "tfrecord, on the card")], tmp)
+def cli_runs(tmp: str) -> list:
+    """Phase 8's two runs of ``python -m mmdgan_torch.experiments.cifar``:
+    host-fed on synthetic data, and over a tfrecord of 4,096 seeded images
+    (made by the port's writer) resident on the card."""
+    x = np.random.RandomState(1).randint(0, 256, (4096, 3, 32, 32), np.uint8)
+    np_to_tfrecords(x, None, os.path.join(tmp, "cifar"))
+    common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1",
+              "--query-step", "160"]
+    # host-fed: 20 graphed windows and 8 single steps
+    return [("cifar", common + ["--synthetic-data", "--steps-per-chunk", "328"],
+             "synthetic, host-fed"),
+            ("cifar", common + ["--device-dataset", "--sampling", "shuffled_epochs",
+                                "--data-dir", tmp, "--steps-per-chunk", "320"],
+             "tfrecord, on the card")]
 
 
 def copy_state(ts: TrainState) -> TrainState:
@@ -1285,27 +1369,25 @@ def check_window_determinism(dev) -> list:
             + ("; Adam counts D 64, G 13" if name.startswith("imbalanced") else ""))
 
 
-def check_family_cli() -> None:
-    """Phase 10, five subprocesses side by side: the stl, celeba and lsun
-    CLIs on synthetic data (32 steps, two graphed windows); celeba over a
-    tfrecord of 1,024 seeded 64x64 images resident on the card with
-    ``--micro-batches 4``; cifar with ``--imbalanced-update 1,5
-    --steps-per-call 16``."""
-    with tempfile.TemporaryDirectory() as tmp:
-        x = np.random.RandomState(2).randint(0, 256, (1024, 3, 64, 64), np.uint8)
-        np_to_tfrecords(x, None, os.path.join(tmp, "celebA_000"))
-        common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1"]
-        debug = ["--synthetic-data", "--debug-mode", "true", "--debug-step", "32"]
-        run_clis([(module, common + debug, "synthetic, 32 steps")
-                  for module in ("stl", "celeba", "lsun")]
-                 + [("celeba", common + ["--device-dataset", "--micro-batches", "4",
-                                         "--num-files", "1", "--data-dir", tmp,
-                                         "--steps-per-chunk", "64", "--query-step", "32"],
-                     "tfrecord on the card, --micro-batches 4, 64 steps"),
-                    ("cifar", common + ["--synthetic-data", "--imbalanced-update", "1,5",
-                                        "--steps-per-call", "16", "--steps-per-chunk", "64",
-                                        "--query-step", "32"],
-                     "synthetic, --imbalanced-update 1,5 in K=16 windows, 64 steps")], tmp)
+def family_cli_runs(tmp: str) -> list:
+    """Phase 10's five CLI runs: the stl, celeba and lsun CLIs on synthetic
+    data (32 steps, two graphed windows); celeba over a tfrecord of 1,024
+    seeded 64x64 images resident on the card with ``--micro-batches 4``;
+    cifar with ``--imbalanced-update 1,5 --steps-per-call 16``."""
+    x = np.random.RandomState(2).randint(0, 256, (1024, 3, 64, 64), np.uint8)
+    np_to_tfrecords(x, None, os.path.join(tmp, "celebA_000"))
+    common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1"]
+    debug = ["--synthetic-data", "--debug-mode", "true", "--debug-step", "32"]
+    return ([(module, common + debug, "synthetic, 32 steps")
+             for module in ("stl", "celeba", "lsun")]
+            + [("celeba", common + ["--device-dataset", "--micro-batches", "4",
+                                    "--num-files", "1", "--data-dir", tmp,
+                                    "--steps-per-chunk", "64", "--query-step", "32"],
+                "tfrecord on the card, --micro-batches 4, 64 steps"),
+               ("cifar", common + ["--synthetic-data", "--imbalanced-update", "1,5",
+                                   "--steps-per-call", "16", "--steps-per-chunk", "64",
+                                   "--query-step", "32"],
+                "synthetic, --imbalanced-update 1,5 in K=16 windows, 64 steps")])
 
 
 def _cli_records(out: str, run: str) -> dict:
@@ -1836,25 +1918,50 @@ def _scheduled(fn, data_x, data_y, rng, start: int = 0):
     return drive
 
 
-def check_same_class_data(dev, card: str) -> None:
-    """Phase 12b: same-class sampling over a CIFAR-shaped labelled dataset
-    on the card (``labelled_dataset``), the conditional model at full
-    width, rep b64 bf16:
+def same_class_setup(dev) -> tuple:
+    """``labelled_dataset`` with its same-class tables, and the conditional
+    model's state from seed 0."""
+    x, y, data_x, data_y = labelled_dataset(dev)
+    table, counts = same_class_tables(y, NUM_CLASS)
+    template = init_train_state(SNGan(cifar_architecture(conditional=True),
+                                      num_class=NUM_CLASS), 0, *multi_opt_config([5e-4, 2e-4]))
+    return x, y, data_x, data_y, table, counts, template
+
+
+def same_class_rates(dev, card: str, setup: tuple) -> None:
+    """Phase 12b's measurement: graphed steps/s of labelled uniform (not
+    same-class), same-class uniform and same-class shuffled-epochs windows
+    of the conditional model over ``labelled_dataset``."""
+    _, _, data_x, data_y, table, counts, template = setup
+    rates = {}
+    for name, sampling, same in (("labelled uniform", "uniform", False),
+                                 ("same-class uniform", "uniform", True),
+                                 ("same-class shuffled epochs", "shuffled_epochs", True)):
+        _, fn, ts = _same_class_fn(template, sampling, same, table, counts)
+        rng = torch.Generator(dev).manual_seed(1)
+        drive = (_scheduled(fn, data_x, data_y, rng) if sampling == "shuffled_epochs"
+                 else lambda ts, _, fn=fn, rng=rng: fn(ts, data_x, data_y, rng))
+        ts, m, rates[name] = timed_windows(drive, ts, None)
+        assert all(torch.isfinite(v).all() for v in m.values()), name
+    log(f"[same-class] graphed device-data windows of the conditional model, steady state "
+        f"({MEASURE_CALLS * SCAN_K} steps after {WARMUP_CALLS * SCAN_K}): "
+        + ", ".join(f"{k} {v:.2f} steps/s" for k, v in rates.items()) + f"; card: {card}")
+
+
+def check_same_class_data(dev, setup: tuple) -> None:
+    """Phase 12b's checks: same-class sampling over a CIFAR-shaped labelled
+    dataset on the card (``labelled_dataset``), the conditional model at
+    full width, rep b64 bf16:
     - SAMPLER_DRAWS batches of each sampler, read on the card: every batch
       is one class, its rows' labels are that class, the scheduled one
       takes the schedule's classes, the uniform one each class about a
       tenth of the time;
-    - graphed steps/s of labelled uniform (not same-class), same-class
-      uniform and same-class shuffled-epochs windows;
     - under deterministic algorithms, graphed and eager windows end
       bitwise equal for both same-class samplings, and
       ``Agent.train_device_data(sample_same_class=True)`` under
       shuffled epochs runs 800 straight steps equal to 400 + restore by a
       new Agent + 400 bitwise."""
-    x, y, data_x, data_y = labelled_dataset(dev)
-    table, counts = same_class_tables(y, NUM_CLASS)
-    template = init_train_state(SNGan(cifar_architecture(conditional=True),
-                                      num_class=NUM_CLASS), 0, *multi_opt_config([5e-4, 2e-4]))
+    x, y, data_x, data_y, table, counts, template = setup
     sched = class_schedule(NUM_CLASS, SAMPLER_DRAWS, 0)
     for sampling in ("uniform", "shuffled_epochs"):
         _, fn, _ = _same_class_fn(template, sampling, True, table, counts)
@@ -1873,20 +1980,6 @@ def check_same_class_data(dev, card: str) -> None:
     log(f"[same-class] {SAMPLER_DRAWS} batches of each sampler read on the card: every batch "
         f"one class ({BATCH} rows whose labels, gathered with them, are that class); the "
         "shuffled-epochs batches follow the class schedule")
-
-    rates = {}
-    for name, sampling, same in (("labelled uniform", "uniform", False),
-                                 ("same-class uniform", "uniform", True),
-                                 ("same-class shuffled epochs", "shuffled_epochs", True)):
-        _, fn, ts = _same_class_fn(template, sampling, same, table, counts)
-        rng = torch.Generator(dev).manual_seed(1)
-        drive = (_scheduled(fn, data_x, data_y, rng) if sampling == "shuffled_epochs"
-                 else lambda ts, _, fn=fn, rng=rng: fn(ts, data_x, data_y, rng))
-        ts, m, rates[name] = timed_windows(drive, ts, None)
-        assert all(torch.isfinite(v).all() for v in m.values()), name
-    log(f"[same-class] graphed device-data windows of the conditional model, steady state "
-        f"({MEASURE_CALLS * SCAN_K} steps after {WARMUP_CALLS * SCAN_K}): "
-        + ", ".join(f"{k} {v:.2f} steps/s" for k, v in rates.items()) + f"; card: {card}")
 
     flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
@@ -1944,26 +2037,25 @@ def run_same_class_agent(template, out: str, name: str, data: dict, max_step: in
                                    sample_same_class=True, sampling="shuffled_epochs")
 
 
-def check_conditional_cli() -> None:
-    """Phase 12d: ``python -m mmdgan_torch.experiments.cifar --num-class 10
-    --sample-same-class`` in three subprocesses side by side: on synthetic
-    labelled data, host-fed over a tfrecord of 4,096 seeded labelled images
-    (the pipeline's same-class batching), and over the same tfrecord
-    resident on the card with ``--device-dataset --sampling
-    shuffled_epochs`` (the class schedule)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        rng = np.random.RandomState(3)
-        np_to_tfrecords(rng.randint(0, 256, (4096, 3, 32, 32), np.uint8),
-                        rng.randint(0, NUM_CLASS, 4096), os.path.join(tmp, "cifar"))
-        common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1",
-                  "--num-class", str(NUM_CLASS), "--sample-same-class", "--query-step", "32",
-                  "--steps-per-chunk", "64"]
-        run_clis([("cifar", common + ["--synthetic-data"], "conditional, synthetic, 64 steps"),
-                  ("cifar", common + ["--data-dir", tmp],
-                   "conditional, tfrecord host-fed, same-class batches, 64 steps"),
-                  ("cifar", common + ["--data-dir", tmp, "--device-dataset", "--sampling",
-                                      "shuffled_epochs"],
-                   "conditional, tfrecord on the card, class schedule, 64 steps")], tmp)
+def conditional_cli_runs(tmp: str) -> list:
+    """Phase 12d's three runs of ``python -m mmdgan_torch.experiments.cifar
+    --num-class 10 --sample-same-class``: on synthetic labelled data,
+    host-fed over a tfrecord of 4,096 seeded labelled images (the
+    pipeline's same-class batching), and over the same tfrecord resident on
+    the card with ``--device-dataset --sampling shuffled_epochs`` (the class
+    schedule)."""
+    rng = np.random.RandomState(3)
+    np_to_tfrecords(rng.randint(0, 256, (4096, 3, 32, 32), np.uint8),
+                    rng.randint(0, NUM_CLASS, 4096), os.path.join(tmp, "cifar"))
+    common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1",
+              "--num-class", str(NUM_CLASS), "--sample-same-class", "--query-step", "32",
+              "--steps-per-chunk", "64"]
+    return [("cifar", common + ["--synthetic-data"], "conditional, synthetic, 64 steps"),
+            ("cifar", common + ["--data-dir", tmp],
+             "conditional, tfrecord host-fed, same-class batches, 64 steps"),
+            ("cifar", common + ["--data-dir", tmp, "--device-dataset", "--sampling",
+                                "shuffled_epochs"],
+             "conditional, tfrecord on the card, class schedule, 64 steps")]
 
 
 # ----------------------------------------------------------------------
@@ -2265,8 +2357,9 @@ def mesh_nccl_rank(store: str, out: str, card: str) -> None:
 
 def _mesh_process(args: list, log_path: str) -> tuple:
     log_file = open(log_path, "w+")
-    return log_file, subprocess.Popen(args, cwd=os.path.dirname(os.path.abspath(__file__)),
-                                      stdout=log_file, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen(args, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=log_file, stderr=subprocess.STDOUT, text=True)
+    return log_file, proc
 
 
 def _wait_all(procs: list, timeout: int) -> list:
@@ -2275,20 +2368,18 @@ def _wait_all(procs: list, timeout: int) -> list:
     logs = []
     try:
         for what, log_file, proc in procs:
-            rc = proc.wait(timeout=timeout)
+            proc.wait(timeout=timeout)
             log_file.seek(0)
             text = log_file.read()
             logs.append(text)
             for line in text.splitlines():
-                if line.startswith(("[mesh]", "[fsdp]", "[profile]")):
-                    log(line)
-            assert rc == 0, f"{what} exited {rc}:\n{text[-4000:]}"
+                # a rank's lines start with its own seconds (mesh_rank_main)
+                m = re.match(r"\s*([\d.]+) (\[(mesh|fsdp|profile)\].*)", line)
+                if m:
+                    log(f"{m.group(2)} ({m.group(1)} s into {what})")
+            assert proc.returncode == 0, f"{what} exited {proc.returncode}:\n{text[-4000:]}"
     finally:
-        for _, log_file, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log_file.close()
+        _stop(procs)
     return logs
 
 
@@ -2306,27 +2397,52 @@ def mesh_cli_commands(tmp: str) -> list:
     return [cmd + common + ["--fresh"], cmd + common]
 
 
-def run_mesh(card: str) -> list:
-    """Phase 13 (data parallelism): 13a and 13c in one process with a
-    one-rank NCCL group, then 13b's two gloo ranks and 13d's torchrun
-    CLI side by side; every process ends before this returns. Returns
-    13a's kernel-means counts."""
+def run_mesh_nccl(card: str) -> list:
+    """Phase 13a and 13c in one process holding a one-rank NCCL group,
+    alone on the card (both time things). Returns 13a's kernel-means
+    counts."""
     me = os.path.abspath(__file__)
     with tempfile.TemporaryDirectory() as tmp:
         _wait_all([("13a/13c NCCL rank", *_mesh_process(
             [sys.executable, me, "--mesh-rank", "nccl", "0", "1", os.path.join(tmp, "nccl"),
              tmp, card], os.path.join(tmp, "nccl.log")))], timeout=400)
         with open(os.path.join(tmp, "nccl.json")) as f:
-            counted = json.load(f)
-        first, again = mesh_cli_commands(tmp)
-        procs = [(f"13b gloo rank {r}", *_mesh_process(
-            [sys.executable, me, "--mesh-rank", "gloo", str(r), "2", os.path.join(tmp, "gloo"),
-             tmp, card], os.path.join(tmp, f"gloo{r}.log"))) for r in range(2)]
-        procs.append(("13d torchrun cifar CLI", *_mesh_process(
-            first, os.path.join(tmp, "cli0.log"))))
-        logs = _wait_all(procs, timeout=400)
-        cli = [logs[-1]] + _wait_all([("13d torchrun cifar CLI, resumed", *_mesh_process(
-            again, os.path.join(tmp, "cli1.log")))], timeout=400)
+            return json.load(f)
+
+
+def start_mesh_smokes(card: str, tmp: str):
+    """Phase 13b and 13d, which time nothing: 13b's two gloo ranks and
+    13d's torchrun CLI side by side. A thread starts the resumed CLI when
+    the fresh one ends, while this process runs its checks: started by the
+    waiting function instead, it ran after the checks and made their block
+    24.2 s longer (PERF.md §6). Returns the function that waits for
+    them and checks them; every process ends before it returns."""
+    me = os.path.abspath(__file__)
+    first, again = mesh_cli_commands(tmp)
+    gloo = [(f"13b gloo rank {r}", *_mesh_process(
+        [sys.executable, me, "--mesh-rank", "gloo", str(r), "2", os.path.join(tmp, "gloo"),
+         tmp, card], os.path.join(tmp, f"gloo{r}.log"))) for r in range(2)]
+    cli, errors = [], []
+
+    def chain():
+        try:
+            for i, (what, cmd) in enumerate((("13d torchrun cifar CLI", first),
+                                             ("13d torchrun cifar CLI, resumed", again))):
+                cli.extend(_wait_all([(what, *_mesh_process(
+                    cmd, os.path.join(tmp, f"cli{i}.log")))], timeout=400))
+        except BaseException as e:   # raised again by finish
+            errors.append(e)
+
+    thread = threading.Thread(target=chain)
+    thread.start()
+
+    def finish() -> None:
+        try:
+            _wait_all(gloo, timeout=400)
+        finally:
+            thread.join()
+        if errors:
+            raise errors[0]
         ranks = [torch.load(os.path.join(tmp, f"gloo{r}.pt"), weights_only=False)
                  for r in range(2)]
         for loss in ranks[0]:
@@ -2347,7 +2463,8 @@ def run_mesh(card: str) -> list:
             f"{len(ranks[0]['rep'])} tensors each for rep and rmb_gp, the generator included); "
             f"13d wrote ckpt-{MESH_CLI_STEPS} and, resumed, ckpt-{2 * MESH_CLI_STEPS}; "
             f"card: {card}")
-    return counted
+
+    return finish
 
 
 SERVE_BATCHES, SERVE_HD_BATCHES = (64, 256, 1024), (16, 64)
@@ -2684,51 +2801,63 @@ def fsdp_nccl_rank(store: str, out: str, card: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def run_serving_and_sharding(dev, card: str) -> list:
-    """Phase 14: 14a serving in this process, then 14b's NCCL rank alone on
-    the card (both time things; a cold nvcc build into a new compilation
-    cache runs on the host beside 14b, then a cache hit), then the step
-    profiler, 14c's two gloo ranks and 14d's four side by side; every
-    process ends before this returns. Returns 14b's kernel-means counts."""
-    me = os.path.abspath(__file__)
-    start = time.perf_counter()
+def run_serving(dev, card: str) -> None:
+    """Phase 14a, in this process (it times things)."""
     with tempfile.TemporaryDirectory() as tmp:
         check_serving(dev, card, tmp)
-        log(f"[timing] 14a serving {time.perf_counter() - start:.1f} s")
-        gc.collect()
-        torch.cuda.empty_cache()
-        cold = _cache_process(tmp, "cold")   # nvcc on the host, beside 14b
-        try:
-            _wait_all([("14b NCCL rank", *_mesh_process(
-                [sys.executable, me, "--mesh-rank", "fsdp-nccl", "0", "1",
-                 os.path.join(tmp, "nccl"), tmp, card], os.path.join(tmp, "nccl.log")))],
-                timeout=400)
-        finally:
-            builds = {"cold": _cache_seconds(cold, "cold")}
-        builds["hit"] = _cache_seconds(_cache_process(tmp, "hit"), "hit")
-        assert builds["cold"]["path"] == builds["hit"]["path"]
-        assert builds["hit"]["path"].startswith(os.path.join(tmp, "cache"))
-        log(f"[cache] {cuda_mmd.SOURCE}: a cold nvcc build into a new compilation cache "
-            f"{builds['cold']['seconds']:.2f} s (beside 14b), a second process with the same "
-            f"cache {builds['hit']['seconds']:.4f} s (nvcc disabled in it); card: {card}")
-        with open(os.path.join(tmp, "fsdp.json")) as f:
-            counted = json.load(f)
-        log(f"[timing] 14a-14b {time.perf_counter() - start:.1f} s")
-        procs = [("14 profile_step", *_mesh_process(
-            [sys.executable, "-m", "mmdgan_torch.tools.profile_step", "--arch", "cifar",
-             "--calls", "2", "--top", "5"], os.path.join(tmp, "profile.log")))]
-        for layout, world in (("fsdp", 2), ("2d", 4)):
-            procs += [(f"14 {layout} gloo rank {r}", *_mesh_process(
-                [sys.executable, me, "--mesh-rank", f"{layout}-gloo", str(r), str(world),
-                 os.path.join(tmp, layout), tmp, card],
-                os.path.join(tmp, f"{layout}{r}.log"))) for r in range(world)]
-        logs = _wait_all(procs, timeout=400)
-        top = [ln for ln in logs[0].splitlines() if ln.startswith("|") and "kernel" not in ln
+
+
+def run_fsdp_nccl(card: str, tmp: str) -> list:
+    """Phase 14b's NCCL rank alone on the card (it times things), a cold
+    nvcc build into a new compilation cache in ``tmp`` on the host beside
+    it; then a second process's hit of that cache, alone. Returns 14b's
+    kernel-means counts."""
+    me = os.path.abspath(__file__)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold = _cache_process(tmp, "cold")   # nvcc on the host, beside 14b
+    try:
+        _wait_all([("14b NCCL rank", *_mesh_process(
+            [sys.executable, me, "--mesh-rank", "fsdp-nccl", "0", "1",
+             os.path.join(tmp, "nccl"), tmp, card], os.path.join(tmp, "nccl.log")))],
+            timeout=400)
+    finally:
+        builds = {"cold": _cache_seconds(cold, "cold")}
+    builds["hit"] = _cache_seconds(_cache_process(tmp, "hit"), "hit")
+    assert builds["cold"]["path"] == builds["hit"]["path"]
+    assert builds["hit"]["path"].startswith(os.path.join(tmp, "cache"))
+    log(f"[cache] {cuda_mmd.SOURCE}: a cold nvcc build into a new compilation cache "
+        f"{builds['cold']['seconds']:.2f} s (beside 14b), a second process with the same "
+        f"cache {builds['hit']['seconds']:.4f} s (nvcc disabled in it, alone); card: {card}")
+    with open(os.path.join(tmp, "fsdp.json")) as f:
+        return json.load(f)
+
+
+
+def start_sharding_smokes(card: str, tmp: str):
+    """Phase 14's parts that time nothing, side by side: the step profiler
+    (a smoke of the tool: beside the other checks its times are not a
+    measurement), 14c's two gloo ranks and 14d's four. Returns the function
+    that waits for them and checks them; every process ends before it
+    returns."""
+    me = os.path.abspath(__file__)
+    procs = [("14 profile_step", *_mesh_process(
+        [sys.executable, "-m", "mmdgan_torch.tools.profile_step", "--arch", "cifar",
+         "--calls", "2", "--top", "5"], os.path.join(tmp, "profile.log")))]
+    for layout, world in (("fsdp", 2), ("2d", 4)):
+        procs += [(f"14 {layout} gloo rank {r}", *_mesh_process(
+            [sys.executable, me, "--mesh-rank", f"{layout}-gloo", str(r), str(world),
+             os.path.join(tmp, layout), tmp, card],
+            os.path.join(tmp, f"{layout}{r}.log"))) for r in range(world)]
+
+    def finish() -> None:
+        text = _wait_all(procs, timeout=400)[0]
+        top = [ln for ln in text.splitlines() if ln.startswith("|") and "kernel" not in ln
                and not ln.startswith("|---")]
-        assert top and "steps/s unprofiled" in logs[0], logs[0][-3000:]
+        assert top and "steps/s unprofiled" in text, text[-3000:]
         log(f"[profile_step] python -m mmdgan_torch.tools.profile_step --arch cifar --calls 2 "
-            f"(beside 14c/14d's gloo ranks): top kernel {top[0]}; "
-            + [ln.strip() for ln in logs[0].splitlines() if "steps/s unprofiled" in ln][0])
+            f"ran its three tables (beside the other checks and processes, so its times are "
+            f"not a measurement): top kernel {top[0]}")
         for layout, world in (("fsdp", 2), ("2d", 4)):
             ranks = [torch.load(os.path.join(tmp, f"{layout}{r}.pt"), weights_only=False)
                      for r in range(world)]
@@ -2745,7 +2874,8 @@ def run_serving_and_sharding(dev, card: str) -> list:
                     f"{sizes[0][1]} replicated ({sizes[0][0] / sizes[0][1]:.4f}x)")
             log(f"[fsdp] 14 {layout}: the {world} gloo ranks' gathered end states are bitwise "
                 f"identical; card: {card}")
-    return counted
+
+    return finish
 
 
 # ----------------------------------------------------------------------
@@ -2947,12 +3077,13 @@ def check_real_cifar(dev, card: str, tmp: str) -> list:
     return [a + b for a, b in zip(launches, cli)]
 
 
-def check_kernel_shapes(dev, kernels: list) -> None:
-    """15b: both kernels against their plain versions at NEW_SHAPES, with
-    phase 3's tolerances, and timed (CUDA events; a replayed graph)."""
+def check_kernel_shapes(dev, kernels: list, shapes: list, seed: int) -> None:
+    """Both kernels against their plain versions at ``shapes`` (scores from
+    ``seed`` + i), with phase 3's tolerances, and timed (CUDA events; a
+    replayed graph): phase 3 at SWEEP_SHAPES, 15b at NEW_SHAPES."""
     cts = cotangents(dev)
-    for i, (b, d) in enumerate(NEW_SHAPES):
-        sg, sx = scores(b, d, seed=10 + i, device=dev)
+    for i, (b, d) in enumerate(shapes):
+        sg, sx = scores(b, d, seed=seed + i, device=dev)
         got = cuda_mmd.kernel_means_cuda(sg, sx, 1.0)
         want = cuda_mmd.kernel_means_reference(sg, sx, 1.0)
         torch.cuda.synchronize()
@@ -2973,14 +3104,15 @@ def check_kernel_shapes(dev, kernels: list) -> None:
             timed = {
                 "fwd": (cuda_ms(lambda: cuda_mmd.kernel_means_cuda(sg, sx, 1.0), 2000),
                         graph_ms(lambda: cuda_mmd.kernel_means_cuda(sg, sx, 1.0)),
-                        cuda_ms(lambda: cuda_mmd.kernel_means_reference(sg, sx, 1.0), 2000),
+                        cuda_ms(lambda: cuda_mmd.kernel_means_reference(sg, sx, 1.0),
+                                PLAIN_CALLS),
                         graph_ms(lambda: cuda_mmd.kernel_means_reference(sg, sx, 1.0)),
                         kernel_means_bound_ms(b, d)),
                 "bwd": (cuda_ms(lambda: cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0),
                                 2000),
                         graph_ms(lambda: cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0)),
                         cuda_ms(lambda: cuda_mmd.kernel_means_backward_reference(
-                            sg, sx, ct, 1.0), 2000),
+                            sg, sx, ct, 1.0), PLAIN_CALLS),
                         graph_ms(lambda: cuda_mmd.kernel_means_backward_reference(
                             sg, sx, ct, 1.0)),
                         kernel_means_backward_bound_ms(b, d))}
@@ -3121,17 +3253,228 @@ def run_real_data_and_tools(dev, card: str, kernels: list) -> list:
     """Phase 15; returns its kernel-means launches, [forward, backward]."""
     with tempfile.TemporaryDirectory() as tmp:
         parts = [check_real_cifar(dev, card, tmp)]
-    check_kernel_shapes(dev, kernels)
+    check_kernel_shapes(dev, kernels, NEW_SHAPES, seed=10)
     parts += [check_simdata(dev, card), check_figure1(dev, card), check_tf1_checkpoint(dev, card)]
     return [sum(p[i] for p in parts) for i in range(2)]
 
 
+# ----------------------------------------------------------------------
+# phase 16: the last four tools (preflight, the scaling study, the fake
+# inception graph with the rehearsal, ImageNet prep)
+# ----------------------------------------------------------------------
+
+SWEEP_SHAPES = [(16, 16), (256, 16)]    # the kernels at 16b's smallest and largest batch
+SWEEP_STEPS = 192                   # 16b: timed steps per point (the tool's default 384)
+SWEEP_REPEAT = (8, 16, 32)          # 16b: K points timed again after the sweep, for the noise
+QUALITY_STEPS = 32                  # 16c: the quality_smoke run that writes the checkpoint
+REHEARSAL_BATCHES = 781             # 16c: the reference protocol, 781 x 64 per side
+IMAGENET_CLASSES, IMAGENET_ROWS, IMAGENET_SIDE = 3, 300, 64   # 16d: 300 = 4 x 64 + 44
+STATS_TOL = dict(rtol=1e-3, atol=1e-5)
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def write_fake_inception(pb: str) -> None:
+    """16c's graph: ``tools/make_fake_inception.py`` writes it and its twin."""
+    from mmdgan_torch.tools import make_fake_inception
+
+    start = time.perf_counter()
+    make_fake_inception.write(pb, seed=0)
+    log(f"[rehearsal] make_fake_inception: {os.path.getsize(pb)} bytes written in "
+        f"{time.perf_counter() - start:.2f} s (the twin beside it)")
+
+
+def run_preflight(card: str) -> None:
+    """16a: ``mmdgan_torch/tools/preflight.py`` must exit 0 with a healthy
+    line for the GPU."""
+    # run as a script, so the parent imports neither the package nor torch
+    out = subprocess.run([sys.executable, os.path.join("mmdgan_torch", "tools", "preflight.py"),
+                          "--timeout", "300"], cwd=REPO_ROOT, capture_output=True, text=True,
+                         timeout=400)
+    assert out.returncode == 0, f"preflight exited {out.returncode}: {out.stdout}{out.stderr}"
+    line = _json_tail(out.stdout)
+    assert line["healthy"] and line["platform"] == "gpu", line
+    log(f"[preflight] {json.dumps(line)}; card: {card}")
+
+
+def run_scaling_study(dev, card: str) -> list:
+    """16b: ``tools/scaling_study.py``'s two sweeps (cifar10 rep, full
+    width, bf16, the tool's ``setup`` and ``timed``): K at batch 64, then
+    the batch at K=16, each point a fresh state and graphed window timed
+    over SWEEP_STEPS steps; then the K points of SWEEP_REPEAT again,
+    which say how far two readings of one point differ. The wrappers'
+    counters, zeroed before each point, show 1 + 2 kernel-means launches
+    per step of its eager window and its capture; after the K sweep's
+    points one more replay runs under the profiler, which must count 1 + 2
+    per step too. Returns the launches: the counters', and the profiler's
+    in the replays."""
+    from mmdgan_torch.tools import scaling_study as study
+
+    launches, k_rows, batch_rows = [0, 0], [], []
+
+    def point(batch: int, k: int, profiled: bool) -> tuple:
+        gc.collect()
+        torch.cuda.empty_cache()
+        step, ts, batches = study.setup("cifar", "rep", batch, k, dev)
+        reset_counters()
+        ts, sps = study.timed(step, ts, batches, k, SWEEP_STEPS)
+        want = [n * k * 2 for n in KERNEL_EVENTS.values()]
+        assert counters() == want, f"16b K={k} b{batch}: counters {counters()}, want {want}"
+        assert (step.graphs.eager, step.graphs.captures) == (1, 1), step.graphs.eager
+        got, prof = counters(), None
+        if profiled:
+            prof = _profiled_window(step, ts, batches, f"16b K={k} replay", k=k)
+            got = [g + prof[name] for g, name in zip(got, KERNEL_EVENTS)]
+        launches[0] += got[0]
+        launches[1] += got[1]
+        return sps, prof
+
+    for k in study.K_SWEEP:
+        sps, prof = point(BATCH, k, True)
+        k_rows.append((k, sps))
+        log(f"[scaling] K={k} b{BATCH}: {sps:.2f} steps/s; a replay: device busy "
+            f"{prof['union']:.4f} ms/step, idle {100 * (1 - prof['union'] / prof['span']):.1f}% "
+            f"of the span, against the untraced step of {1e3 / sps:.4f} ms idle "
+            f"{100 * (1 - prof['union'] * sps / 1e3):.1f}%, kernel means "
+            f"{prof['kernel_means_fwd'] // k}+{prof['kernel_means_bwd'] // k} per step")
+    for b in study.BATCH_SWEEP:
+        sps, _ = point(b, SCAN_K, False)
+        batch_rows.append((b, sps))
+        log(f"[scaling] b{b} K={SCAN_K}: {sps:.2f} steps/s, {sps * b:.1f} images/s")
+    sweep = dict(k_rows)
+    for k in SWEEP_REPEAT:
+        sps, _ = point(BATCH, k, False)
+        log(f"[scaling] K={k} b{BATCH} again: {sps:.2f} steps/s against {sweep[k]:.2f} in the "
+            f"sweep ({100 * (sps / sweep[k] - 1):+.2f}%)")
+    for line in (study.K_TABLE.splitlines() + [study.k_row(*r) for r in k_rows] + [""]
+                 + study.BATCH_TABLE.splitlines() + [study.batch_row(*r) for r in batch_rows]):
+        log(f"[scaling] {line}")
+    log(f"[scaling] cifar10 rep bf16, {SWEEP_STEPS} timed steps per point after an eager "
+        f"window and the capture; kernel means {launches[0]} + {launches[1]} launches "
+        f"(counters over the eager windows and captures, the profiler over one replay per K); "
+        f"card: {card}")
+    return launches
+
+
+def start_quality_smoke(tmp: str):
+    """16c's first part, which times nothing: ``tools/quality_smoke.py --loss
+    rmb`` for QUALITY_STEPS graphed steps in a process, writing its
+    checkpoint to tmp/ckpt. Returns the function that waits for it."""
+    proc = ("16c quality_smoke --ckpt-dir", *_mesh_process(
+        [sys.executable, "-m", "mmdgan_torch.tools.quality_smoke", "--loss", "rmb",
+         "--steps", str(QUALITY_STEPS), "--eval-every", str(QUALITY_STEPS),
+         "--eval-batches", "2", "--ckpt-dir", os.path.join(tmp, "ckpt"),
+         "--out", os.path.join(tmp, "quality_smoke")], os.path.join(tmp, "quality_smoke.log")))
+
+    def finish() -> None:
+        text = _wait_all([proc], timeout=600)[0]
+        assert "RESUMABLE" in text, text[-3000:]
+
+    return finish
+
+
+def run_rehearsal(card: str, tmp: str, pb: str) -> None:
+    """16c: ``tools/inception_rehearsal.py`` in this process over the
+    checkpoint, at the reference protocol (781 x 64 per side) through the
+    fake inception graph at 299x299 on the card, its cross-check (the
+    executor on the card against the CPU's, JAX's gate 1e-4) on."""
+    from mmdgan_torch.tools import inception_rehearsal
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = inception_rehearsal.main(
+            ["--pb", pb, "--ckpt-dir", os.path.join(tmp, "ckpt"), "--batch", str(BATCH),
+             "--eval-batches", str(REHEARSAL_BATCHES)])
+    text = out.getvalue()
+    line = _json_tail(text)
+    assert rc == 0 and line["samples"] == REHEARSAL_BATCHES * BATCH, text[-2000:]
+    assert line["ckpt_step"] == QUALITY_STEPS, line
+    scores = [line[k] for k in ("is_x", "is_g", "fid_xx", "fid_xg")]
+    assert all(np.isfinite(scores)) and line["crosscheck_max_rel_diff"] < 1e-4, line
+    log(f"[rehearsal] {text.strip().splitlines()[0]}")
+    log(f"[rehearsal] {json.dumps(line)}")
+    log(f"[rehearsal] {REHEARSAL_BATCHES} x {BATCH} per side through the fake inception at "
+        f"299x299 on the card: IS(x) {line['is_x']:.4f}, IS(g) {line['is_g']:.4f}, FID(x, x) "
+        f"{line['fid_xx']:.4f}, FID(x, g) {line['fid_xg']:.4f}; classifier "
+        f"{line['classifier_images_per_sec']:.1f} images/s (the TF1 resize from 32 included), "
+        f"eval {line['eval_seconds']:.2f} s by part {json.dumps(line['seconds_by_part'])}; "
+        f"cross-check card vs CPU max relative difference "
+        f"{line['crosscheck_max_rel_diff']:.3e} (gate 1e-4); card: {card}")
+
+
+def check_imagenet_prep(dev, card: str, tmp: str, pb: str) -> None:
+    """16d: ``tools/imagenet_prep.py``. ``extract`` on a train tar written
+    here with tarfile (one inner tar per class) gives the class folders and
+    their files; ``ref-stats`` over IMAGENET_CLASSES per-class record files
+    of IMAGENET_ROWS seeded 64x64 rows (``np_to_tfrecords``, the
+    ``imagenet_{cls:03d}`` names) through the fake inception, on the card
+    and on the CPU: every class's mean and covariance agree at rtol 1e-3.
+    (``tfrecords`` needs PIL, which the card's machine lacks; the CPU tests
+    hold it to JAX's bytes.)"""
+    import tarfile
+
+    from mmdgan_torch.tools import imagenet_prep
+
+    rng = np.random.RandomState(16)
+    want, outer = {}, os.path.join(tmp, "train.tar")
+    with tarfile.open(outer, "w") as tar:
+        for cls in range(IMAGENET_CLASSES):
+            wnid, inner = f"n0{cls:07d}", io.BytesIO()
+            with tarfile.open(fileobj=inner, mode="w") as t:
+                for i in range(2):
+                    data = rng.bytes(64)
+                    info = tarfile.TarInfo(f"{wnid}_{i}.JPEG")
+                    info.size = len(data)
+                    t.addfile(info, io.BytesIO(data))
+                    want[os.path.join(wnid, info.name)] = data
+            info = tarfile.TarInfo(f"{wnid}.tar")
+            info.size = len(inner.getvalue())
+            tar.addfile(info, io.BytesIO(inner.getvalue()))
+    train = os.path.join(tmp, "train")
+    with contextlib.redirect_stdout(io.StringIO()):
+        imagenet_prep.extract_train(outer, train)
+    got = {os.path.relpath(os.path.join(d, f), train): Path(d, f).read_bytes()
+           for d, _, files in os.walk(train) for f in files}
+    assert got == want, sorted(got)
+
+    data = os.path.join(tmp, "imagenet")
+    os.makedirs(data)
+    for cls in range(IMAGENET_CLASSES):
+        x = rng.randint(0, 256, (IMAGENET_ROWS, 3, IMAGENET_SIDE, IMAGENET_SIDE), np.uint8)
+        np_to_tfrecords(x, np.full(IMAGENET_ROWS, cls), os.path.join(data, f"imagenet_{cls:03d}"))
+    stats, seconds = {}, {}
+    for where in (dev, "cpu"):
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths = imagenet_prep.ref_stats(data, 0, IMAGENET_CLASSES, BATCH, pb, device=where)
+        seconds[str(where)] = time.perf_counter() - start
+        stats[str(where)] = [dict(np.load(p)) for p in paths]
+    worst = 0.0
+    for cls, (card_stats, cpu_stats) in enumerate(zip(*stats.values())):
+        for key in ("mean", "cov"):
+            np.testing.assert_allclose(card_stats[key], cpu_stats[key], **STATS_TOL,
+                                       err_msg=f"16d class {cls} {key}: card vs CPU")
+            gap = np.abs(card_stats[key] - cpu_stats[key])
+            worst = max(worst, float((gap / (STATS_TOL["atol"] + STATS_TOL["rtol"]
+                                             * np.abs(cpu_stats[key]))).max()))
+        assert card_stats["mean"].shape == (2048,) and card_stats["cov"].shape == (2048, 2048)
+    n = IMAGENET_CLASSES * IMAGENET_ROWS
+    log(f"[imagenet] extract: {IMAGENET_CLASSES} class tars unpacked, {len(want)} files "
+        f"bitwise; ref-stats over {IMAGENET_CLASSES} classes of {IMAGENET_ROWS} "
+        f"{IMAGENET_SIDE}x{IMAGENET_SIDE} rows (the last batch of 44 included) through the "
+        f"fake inception: card {seconds[str(dev)]:.2f} s ({n / seconds[str(dev)]:.1f} images/s "
+        f"with the record reads and the host statistics), CPU {seconds['cpu']:.2f} s; every "
+        f"class's pool3 mean and covariance card vs CPU within rtol 1e-3 / atol 1e-5 (the "
+        f"largest difference {worst:.3f} of the tolerance); card: {card}")
+
+
 def mesh_rank_main(argv: list) -> int:
     """``chip_smoke.py --mesh-rank KIND RANK WORLD STORE OUT CARD``: one
-    rank of phase 13 (``nccl``, ``gloo``; run by ``run_mesh``) or of phase
-    14 (``fsdp-nccl``, ``fsdp-gloo``, ``2d-gloo``; run by
-    ``run_serving_and_sharding``)."""
+    rank of phase 13 (``nccl``, run by ``run_mesh_nccl``; ``gloo``, by
+    ``start_mesh_smokes``) or of phase 14 (``fsdp-nccl``, run by
+    ``run_fsdp_nccl``; ``fsdp-gloo``, ``2d-gloo``, by
+    ``start_sharding_smokes``)."""
     kind, rank, world, store, out, card = argv
+    _START.append(time.perf_counter())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
     _build.build(cuda_mmd.SOURCE)
@@ -3146,6 +3489,22 @@ def mesh_rank_main(argv: list) -> int:
     return 0
 
 
+PHASES = tuple(range(3, 17))
+
+
+def parse_phases(argv: list) -> set:
+    """``--phases 3,15,16`` (default: every phase); phase 3 always runs, as
+    the kernels line needs it."""
+    if not argv:
+        return set(PHASES)
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases N,N,...] (phases 3-16)")
+    chosen = {int(v) for v in argv[1].split(",") if v}
+    if not chosen <= set(PHASES):
+        raise SystemExit(f"chip_smoke.py: phases {sorted(chosen - set(PHASES))} do not exist")
+    return chosen | {3}
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace, chosen before
     # its first call (phase 6)
@@ -3156,6 +3515,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank_main(sys.argv[2:])
+    chosen = parse_phases(sys.argv[1:])
+    _START.append(time.perf_counter())
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 Gram products, as the reference
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3172,57 +3533,121 @@ def main() -> int:
     log(f"[build] {cuda_mmd.SOURCE}: {time.perf_counter() - start:.2f} s "
         f"({'loaded from build/' if existed else 'nvcc sm_90a'})")
 
-    seconds = {}
+    seconds, launches = {}, []
 
-    def phase(name, fn):
+    def phase(name, fn, counted: bool = False):
+        """Run phase ``name`` if its number was chosen; ``counted``: it
+        returns its kernel-means launches, [forward, backward], which the
+        kernels line sums."""
+        if int(name.split()[0]) not in chosen:
+            return None
         start = time.perf_counter()
         out = fn()
         seconds[name] = round(time.perf_counter() - start, 1)
+        if counted:
+            launches.append(out)
         return out
 
-    kernels = phase("3 kernels", lambda: [check_kernel_means(dev),
-                                          check_kernel_means_backward(dev)])
-    phase("4 reference", lambda: [check_against_cpu(dev, loss) for loss in CPU_CHECK_LOSSES])
-    runs = phase("5 main", lambda: {loss: run_main_path(dev, loss, card)
-                                    for loss in ("rep", "rmb")})
-    phase("6 determinism", lambda: check_determinism(dev))
-    phase("7 trainer", lambda: check_trainer(dev))
-    phase("8 cli", check_cli)
-    loss_launches = phase("9 losses", lambda: run_losses(dev, card))
-    phase("9 rep_gp determinism", lambda: check_penalty_determinism(dev))
-    family_launches = phase("10 families", lambda: [
-        run_family(dev, name, arch, card)
-        for name, arch in (("stl10", stl_architecture()), ("celeba", celeba_architecture()))])
-    hd_launches = phase("10 hd512", lambda: run_hd512(dev, card))
-    phase("10 accumulation checks", lambda: [
-        check_against_cpu(dev, loss, micro=ACCUM_M) for loss in ("rep", "rmb_gp")]
-        + [check_accum_equals_fused(dev)])
-    phase("10 window determinism", lambda: check_window_determinism(dev))
-    phase("10 cli", check_family_cli)
-    eval_launches = phase("11 eval cli", lambda: run_eval_cli(dev, card))
-    phase("11 metrics", lambda: check_metrics_on_card(dev))
-    phase("11 optimizer windows", lambda: check_optimizer_windows(dev))
-    phase("11 optimizer steps/s", lambda: optimizer_steps_per_sec(dev, card))
-    cond_launches = phase("12 conditional", lambda: run_conditional(dev, card))
-    phase("12 same-class data", lambda: check_same_class_data(dev, card))
-    phase("12 card vs CPU", lambda: check_catalogue_on_card(dev))
-    phase("12 cli", check_conditional_cli)
-    mesh_launches = phase("13 mesh", lambda: run_mesh(card))
-    fsdp_launches = phase("14 serving and sharding", lambda: run_serving_and_sharding(dev, card))
-    data_launches = phase("15 real data and tools",
-                          lambda: run_real_data_and_tools(dev, card, kernels))
+    def main_path():
+        runs = {loss: run_main_path(dev, loss, card) for loss in ("rep", "rmb")}
+        return [sum(counted[i] for counted, _ in runs.values()) for i in range(2)]
+
+    def families():
+        runs = [run_family(dev, name, arch, card)
+                for name, arch in (("stl10", stl_architecture()),
+                                   ("celeba", celeba_architecture()))]
+        return [sum(r[i] for r in runs) for i in range(2)]
+
+    def shapes():
+        kernels = [check_kernel_means(dev), check_kernel_means_backward(dev)]
+        check_kernel_shapes(dev, kernels, SWEEP_SHAPES, seed=20)
+        return kernels
+
+    # phases 7 and 12b's datasets, each built once for its timed part and
+    # its checks
+    trainer_data = cache(lambda: trainer_dataset(dev))
+    same_class_data = cache(lambda: same_class_setup(dev))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the parts that time things, alone on the card
+        kernels = phase("3 kernels", shapes)
+        phase("5 main", main_path, counted=True)
+        phase("7 trainer steps/s", lambda: trainer_rates(dev, *trainer_data()))
+        phase("9 losses", lambda: run_losses(dev, card), counted=True)
+        phase("10 families", families, counted=True)
+        phase("10 hd512", lambda: run_hd512(dev, card), counted=True)
+        phase("11 eval cli", lambda: run_eval_cli(dev, card), counted=True)
+        phase("11 metrics", lambda: check_metrics_on_card(dev))
+        phase("11 optimizer steps/s", lambda: optimizer_steps_per_sec(dev, card))
+        phase("12 conditional", lambda: run_conditional(dev, card), counted=True)
+        phase("12 same-class steps/s", lambda: same_class_rates(dev, card, same_class_data()))
+        phase("13 mesh NCCL", lambda: run_mesh_nccl(card), counted=True)
+        phase("14 serving", lambda: run_serving(dev, card))
+        os.makedirs(os.path.join(tmp, "14"))
+        phase("14 fsdp NCCL", lambda: run_fsdp_nccl(card, os.path.join(tmp, "14")),
+              counted=True)
+        phase("15 real data and tools", lambda: run_real_data_and_tools(dev, card, kernels),
+              counted=True)
+        phase("16 preflight", lambda: run_preflight(card))
+        phase("16 scaling", lambda: run_scaling_study(dev, card), counted=True)
+        pb = os.path.join(tmp, "fake_inception_v1.pb")
+        phase("16 fake inception", lambda: write_fake_inception(pb))
+
+        # the checks, which time nothing, in this process beside the phases'
+        # subprocesses that time nothing either
+        start, pending = time.perf_counter(), []
+
+        def beside(name, begin):
+            if int(name.split()[0]) in chosen:
+                folder = os.path.join(tmp, name.replace(" ", "_"))
+                os.makedirs(folder, exist_ok=True)
+                pending.append((name, begin(folder)))
+
+        try:
+            beside("8 cli", lambda d: partial(finish_clis, start_clis(cli_runs(d), d)))
+            beside("10 cli", lambda d: partial(finish_clis, start_clis(family_cli_runs(d), d)))
+            beside("12 cli", lambda d: partial(finish_clis,
+                                               start_clis(conditional_cli_runs(d), d)))
+            beside("13 gloo and cli", lambda d: start_mesh_smokes(card, d))
+            beside("14 gloo and profile_step",
+                   lambda d: start_sharding_smokes(card, os.path.join(tmp, "14")))
+            beside("16 quality_smoke", lambda d: start_quality_smoke(tmp))
+            phase("4 reference",
+                  lambda: [check_against_cpu(dev, loss) for loss in CPU_CHECK_LOSSES])
+            phase("6 determinism", lambda: check_determinism(dev))
+            phase("7 trainer checks", lambda: check_trainer(dev, *trainer_data()))
+            phase("9 rep_gp determinism", lambda: check_penalty_determinism(dev))
+            phase("10 accumulation checks", lambda: [
+                check_against_cpu(dev, loss, micro=ACCUM_M) for loss in ("rep", "rmb_gp")]
+                + [check_accum_equals_fused(dev)])
+            phase("10 window determinism", lambda: check_window_determinism(dev))
+            phase("11 optimizer windows", lambda: check_optimizer_windows(dev))
+            phase("12 same-class checks", lambda: check_same_class_data(dev, same_class_data()))
+            phase("12 card vs CPU", lambda: check_catalogue_on_card(dev))
+            phase("16 imagenet prep", lambda: check_imagenet_prep(dev, card, tmp, pb))
+        finally:
+            errors = []
+            for name, finish in pending:
+                try:
+                    finish()
+                except BaseException as e:   # every group is waited for, then raised
+                    errors.append(e)
+                seconds[name] = round(time.perf_counter() - start, 1)
+            if errors:
+                raise errors[0]
+        seconds["checks and subprocesses"] = round(time.perf_counter() - start, 1)
+        phase("16 rehearsal", lambda: run_rehearsal(card, tmp, pb))
     for i, kernel in enumerate(kernels):
-        kernel["launches"] = (sum(launches[i] for launches, _ in runs.values()) + loss_launches[i]
-                              + sum(f[i] for f in family_launches) + hd_launches[i]
-                              + eval_launches[i] + cond_launches[i] + mesh_launches[i]
-                              + fsdp_launches[i] + data_launches[i])
+        kernel["launches"] = sum(counted[i] for counted in launches)
 
     log(f"[timing] seconds by phase: {json.dumps(seconds)}")
-    log(json.dumps({"kernels": kernels}))
-    log(card)
-    log(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                           "kind": torch.cuda.get_device_name(0),
-                                           "count": torch.cuda.device_count()}}))
+    log(f"[phases] ran {', '.join(map(str, sorted(chosen)))} of {PHASES[0]}-{PHASES[-1]}; "
+        f"the kernels line sums their launches")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -18,10 +18,10 @@ scores come from random features, comparable only within the port.
 ``--num-class C`` (C >= 2) reads labels with the images (synthetic labels
 with ``--synthetic-data``) and trains the class-conditional model the
 dataset's script builds; ``--sample-same-class`` takes each batch from
-one class and generates that class. A flag whose module is not ported
-yet raises and names its ROADMAP item: ``--use-pallas`` (the TPU kernel;
-the port always runs its own CUDA kernel-means kernel, B1) and
-``--compilation-cache`` (A16). ``--loss`` takes every name of the loss
+one class and generates that class. One flag raises and names its
+ROADMAP item: ``--use-pallas`` (the TPU kernel; the port always runs its
+own CUDA kernel-means kernel, B1). ``--compilation-cache DIR`` moves the
+kernels' build directory to DIR. ``--loss`` takes every name of the loss
 dispatcher.
 
 Under ``torchrun`` (``WORLD_SIZE`` in the environment) the host-fed path

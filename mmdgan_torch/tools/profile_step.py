@@ -28,6 +28,7 @@ from __future__ import annotations
 import argparse
 import re
 import time
+from collections import Counter
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -49,11 +50,49 @@ def _is_frame(event) -> bool:
 
 
 def _kernels(prof, device: torch.device) -> list:
-    """The profile's device kernels; on the CPU, its innermost host ops."""
+    """``(name, start_ns, end_ns)`` of the profile's device activities
+    (``raw_activities``); on the CPU, of its innermost host ops."""
     if device.type == "cuda":
-        return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+        return raw_activities(prof, torch.autograd.DeviceType.CUDA)
+    return [(e.name, int(e.time_range.start * 1e3), int(e.time_range.end * 1e3))
+            for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
             and not _is_frame(e) and all(_is_frame(c) for c in e.cpu_children)]
+
+
+def raw_activities(prof, device_type) -> list:
+    """``(name, start_ns, end_ns)`` of the profile's events on ``device_type``
+    (a ``torch.autograd.DeviceType``), read from the profiler's raw results
+    with the names and filters ``prof.events()`` applies, without building
+    that list: it costs about 50 us an event, seconds for an eager window of
+    the CIFAR step. ``check_raw_activities`` holds the two against each
+    other."""
+    # torch's own private helpers, imported here so that a torch release
+    # that moves them breaks this reader alone
+    from torch.autograd.profiler_util import StringTable, _filter_name
+
+    names = StringTable()
+    return [(names[e.name()], e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == device_type and not _filter_name(e.name())
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
+def check_raw_activities(prof, device_type) -> Dict:
+    """``raw_activities`` against ``prof.events()`` on ``device_type``: the
+    same names as many times each and the same total time (to 1 ns), else
+    an AssertionError that says what differs. Returns the activities and
+    their total ns."""
+    raw = raw_activities(prof, device_type)
+    parsed = [e for e in prof.events() if e.device_type == device_type]
+    raw_ns = sum(hi - lo for _, lo, hi in raw)
+    parsed_ns = sum(e.time_range.elapsed_us() for e in parsed) * 1e3
+    raw_names, parsed_names = Counter(n for n, _, _ in raw), Counter(e.name for e in parsed)
+    if raw_names != parsed_names or abs(raw_ns - parsed_ns) > 1:
+        raise AssertionError(
+            f"raw results: {len(raw)} activities, {raw_ns} ns; prof.events(): {len(parsed)}, "
+            f"{parsed_ns:.1f} ns; only in the raw results {dict(raw_names - parsed_names)}; "
+            f"only in prof.events() {dict(parsed_names - raw_names)}")
+    return {"activities": len(raw), "ns": raw_ns}
 
 
 def window_timeline(prof, steps: int, device: torch.device, count: tuple = ()) -> Dict:
@@ -66,21 +105,21 @@ def window_timeline(prof, steps: int, device: torch.device, count: tuple = ()) -
     kernels = _kernels(prof, device)
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    spans = sorted((lo, hi) for _, lo, hi in kernels)
     covered, reach = 0, spans[0][0]
     for lo, hi in spans:
         covered += max(0, hi - max(lo, reach))
         reach = max(reach, hi)
-    out = {"busy": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps,
-           "union": covered / 1e3 / steps, "span": (reach - spans[0][0]) / 1e3 / steps,
+    out = {"busy": sum(hi - lo for lo, hi in spans) / 1e6 / steps,
+           "union": covered / 1e6 / steps, "span": (reach - spans[0][0]) / 1e6 / steps,
            "activities": len(kernels) / steps, "by_name": {}, "calls_by_name": {}}
-    for e in kernels:
-        out["by_name"][e.name] = out["by_name"].get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        out["calls_by_name"][e.name] = out["calls_by_name"].get(e.name, 0) + 1
+    for name, lo, hi in kernels:
+        out["by_name"][name] = out["by_name"].get(name, 0.0) + (hi - lo) / 1e6
+        out["calls_by_name"][name] = out["calls_by_name"].get(name, 0) + 1
     for name in count:
-        out[name] = sum(name in e.name for e in kernels)
-    out["nccl_ops"] = sum(e.device_type == torch.autograd.DeviceType.CPU
-                          and e.name.startswith("nccl:") for e in prof.events())
+        out[name] = sum(name in k[0] for k in kernels)
+    out["nccl_ops"] = sum(name.startswith("nccl:") for name, _, _ in
+                          raw_activities(prof, torch.autograd.DeviceType.CPU))
     return out
 
 

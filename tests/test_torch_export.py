@@ -282,3 +282,24 @@ def test_serving_bench_and_profile_step_on_the_cpu(capsys):
     assert any(scope.startswith("mmdgan_torch/ops/conv.py") for scope in result["modules"])
     lines = profile_step.report(result, top=3)
     assert sum(line.startswith("## ") for line in lines) == 3
+
+
+def test_profile_raw_activities_equal_prof_events():
+    """``profile_step.raw_activities``, which ``window_timeline`` reads on
+    the card, holds the names and times that ``prof.events()`` gives, with
+    its filters (the record_function bookkeeping ops go): here on host ops
+    that nest no op in one of its own name, which ``prof.events()`` would
+    merge (device kernels never nest). The collectives count reads it too."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    a = torch.tensor(np.random.RandomState(0).randn(64, 64).astype(np.float32))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with record_function("nccl:all_reduce"):
+                a = torch.exp(a) * 0.5 + a
+    cpu = torch.autograd.DeviceType.CPU
+    got = profile_step.check_raw_activities(prof, cpu)
+    names = [name for name, _, _ in profile_step.raw_activities(prof, cpu)]
+    assert got["activities"] == len(names) >= 12 and got["ns"] > 0
+    assert names.count("nccl:all_reduce") == 3 and not any("record_function" in n for n in names)
+    assert profile_step.window_timeline(prof, 3, torch.device("cpu"))["nccl_ops"] == 3

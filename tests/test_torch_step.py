@@ -254,6 +254,25 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 27
 
 
+def test_chip_smoke_phase_selection_and_no_gpu_exit():
+    """``chip_smoke.py --phases``: every phase by default, phase 3 always
+    (the kernels line needs it), unknown phases refused; without a GPU the
+    script exits non-zero and prints no result."""
+    import chip_smoke
+
+    assert chip_smoke.parse_phases([]) == set(range(3, 17))
+    assert chip_smoke.parse_phases(["--phases", "3,16"]) == {3, 16}
+    assert chip_smoke.parse_phases(["--phases", "15"]) == {3, 15}
+    for bad in (["--phases", "2,16"], ["--phases", "17"], ["--phase", "3"]):
+        with pytest.raises(SystemExit):
+            chip_smoke.parse_phases(bad)
+    if torch.cuda.is_available():
+        return
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "3,16"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and out.stdout == "" and "is_available" in out.stderr
+
+
 def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     opt_d, opt_g = multi_opt_config([5e-4, 2e-4])

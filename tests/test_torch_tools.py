@@ -51,6 +51,9 @@ NEW_MODULES = [
     "mmdgan_torch/utils/tf1_import.py", "mmdgan_torch/ops/_build.py",
     "mmdgan_torch/tools/quality_smoke.py", "mmdgan_torch/tools/figure1.py",
     "mmdgan_torch/tools/parity_run.py", "mmdgan_torch/tools/sweep_grid.py",
+    "mmdgan_torch/tools/preflight.py", "mmdgan_torch/tools/scaling_study.py",
+    "mmdgan_torch/metrics/graph_encode.py", "mmdgan_torch/tools/make_fake_inception.py",
+    "mmdgan_torch/tools/inception_rehearsal.py", "mmdgan_torch/tools/imagenet_prep.py",
 ]
 
 
@@ -183,11 +186,12 @@ def test_sweep_grid_cli_resumes(tmp_path):
 
 
 def test_new_modules_import_no_jax_and_no_optional_libraries():
-    """The slice's modules name nothing of jax, mmdgan_tpu, experiments or
-    tools/, and importing every module of the port loads neither PIL,
-    matplotlib nor TensorFlow (the card's machine has none of them)."""
-    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|mmdgan_tpu|experiments|tools)\b",
-                        re.M)
+    """The slices' modules name nothing of jax, mmdgan_tpu, experiments,
+    tools/, TensorFlow or protobuf, and importing every module of the port
+    loads neither PIL, matplotlib nor TensorFlow (the card's machine has
+    none of them)."""
+    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|mmdgan_tpu|experiments|tools|"
+                        r"tensorflow|google)\b", re.M)
     for path in NEW_MODULES:
         with open(os.path.join(REPO, path)) as f:
             assert not banned.search(f.read()), path
