@@ -5,7 +5,7 @@ Run from the repository root, with no arguments (every phase):
 
     python3 chip_smoke.py
 
-or with ``--phases 3,15,16`` for some of them (phase 3 always runs: the
+or with ``--phases 3,16,17`` for some of them (phase 3 always runs: the
 kernels line needs it; that line sums the launches of the phases that ran,
 named on the line after the timing). The main process's log lines start
 with the seconds since it started.
@@ -13,7 +13,7 @@ with the seconds since it started.
 Order: the parts of the chosen phases that time things run first, in
 phase order, alone on the card. Then the checks that time nothing (4, 6,
 7's and 12b's bitwise runs, 9's and 10's determinism, 10's accumulation,
-11's optimizer windows, 12's card-vs-CPU models, 16d) run in this process
+11's optimizer windows, 12's card-vs-CPU models, 16d, 17's tc layer) run in this process
 while the phases' subprocesses that time nothing run beside them: the CLI
 smokes of 8, 10 and 12, 13b and 13d (its resumed CLI started by a thread
 when the fresh one ends), 14's gloo ranks and step profiler, and 16c's
@@ -220,6 +220,27 @@ Phases, each fatal on failure:
      here, and ``ref-stats`` over three classes of 300 seeded 64x64 rows
      through the fake graph, on the card and on the CPU: every class's
      mean and covariance agree at rtol 1e-3.
+17. the five studies (``mmdgan_torch/tools``), each at a cut size that the
+   log names:
+   - 17a: ``kernel_study``: both kernels against their plain versions at
+     (64, 256) and (256, 256) with phase 3's tolerances, timed and
+     bounded; the study's gate (its scalar and gradient, kernel against
+     plain) and microbench at (64, 16), (64, 256), (256, 16), (256, 256),
+     64 chained iterations per graph (the tool's 512); the CIFAR step with
+     ``use_fused_kernel`` on and off for rep and rmb_gp at b64, 64 timed
+     steps a reading, on and off in turns twice, the counters at 1 + 2 per
+     step of each fused reading and 0 with the kernel off;
+   - 17b/17c: ``conv_study`` on ``l1_f64`` (direct, pad8), ``l2_ds``
+     (direct, s2d) and ``l7`` (direct, im2col) and ``tc_study`` on cifar's
+     ``g4``, hd128's ``g6`` and hd512's ``g8`` (every variant), NCHW and
+     ``channels_last``, bf16 b64, each variant gated in float32 with TF32
+     off first; then a ``tc`` layer built with ``TC_PS3_MIN_SIZE`` at 64
+     (ps3) against the direct route on the card, output and both
+     gradients, beside the other checks;
+   - 17d: ``hbm_study``'s synthetic, base, pregather and cursor variants on
+     cifar over 50,000 seeded rows, 128 timed steps each;
+   - 17e: ``export_study`` on cifar at b256: images/s of the in-process,
+     exported and weights-as-inputs generators.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -3467,6 +3488,175 @@ def check_imagenet_prep(dev, card: str, tmp: str, pb: str) -> None:
         f"largest difference {worst:.3f} of the tolerance); card: {card}")
 
 
+# ----------------------------------------------------------------------
+# phase 17: the five studies that asked the TPU's questions, asked of the
+# H100 (kernel, conv, tc, device-data sampling, export), at a cut size
+# ----------------------------------------------------------------------
+
+STUDY_SHAPES = [(64, 256), (256, 256)]  # 17a: the kernels at d = 256, beside phase 3's d = 16
+STUDY_ITERS = 64                    # 17a: chained iterations per graph (the tool's 512)
+STUDY_REPEAT = 3                    # 17a-17c: timed replays per reading (the tools' 5, 7, 7)
+STUDY_STEPS = 64                    # 17a: timed steps per step A/B reading (the tool's 512)
+STUDY_AB = ("rep", "rmb_gp")        # 17a: the step A/B at b64, on/off in turns twice
+CONV_CUT = {"l1_f64": ("direct", "pad8"), "l2_ds": ("direct", "s2d"), "l7": ("direct", "im2col")}
+TC_CUT = ("g4 16x16 128->64", "g6", "g8")
+STUDY_INNER = (20, 5)               # 17b/17c: calls per graph below / at 128x128 (the tools' 200, 25)
+HBM_CUT, HBM_STEPS = ("synthetic", "base", "pregather", "cursor"), 128   # 17d (the tool's 512)
+EXPORT_BATCH, EXPORT_CALLS = 256, 16    # 17e: cifar (the tool's default celeba, lsun at b1024, 64)
+
+
+def run_kernel_study(dev, card: str, kernels: list) -> list:
+    """17a: ``tools/kernel_study.py`` at a cut size. Both kernels against
+    their plain versions at STUDY_SHAPES (phase 3's tolerances, timed and
+    bounded, ``check_kernel_shapes``); the study's gate (its scalar and
+    gradient, kernel against plain) and its microbench at all four (B, d),
+    STUDY_ITERS chained iterations per graph; then the CIFAR step with
+    ``use_fused_kernel`` on and off for STUDY_AB at b64, STUDY_STEPS timed
+    steps, in turns twice. The wrappers' counters, zeroed after the gates,
+    count n + 1 launches per timed capture (its eager warm-up and its n
+    captured iterations) and 1 + 2 per step of each fused reading's eager
+    window and capture, none with the kernel off. Returns those launches."""
+    from mmdgan_torch.tools import kernel_study as study
+
+    check_kernel_shapes(dev, kernels, STUDY_SHAPES, seed=40)
+    rows, launches = [], [0, 0]
+    for b, d in study.MICRO_SHAPES:
+        err = study.gate(b, d, dev)
+        reset_counters()
+        row = study.micro_row(b, d, STUDY_ITERS, dev, STUDY_REPEAT)
+        n = STUDY_ITERS + 1
+        assert counters() == [2 * n, n], f"17a ({b}, {d}): counters {counters()}"
+        launches = [a + c for a, c in zip(launches, counters())]
+        rows.append(row)
+        log(f"[kernel_study] ({b}, {d}): gate passed (gradient max |err| {err:.3e}); "
+            f"bound {row['bound_by']}")
+    for line in study.MICRO_TABLE.splitlines() + [study.format_micro(r) for r in rows]:
+        log(f"[kernel_study] {line}")
+    for loss in STUDY_AB:
+        reset_counters()
+        readings = study.step_readings(loss, BATCH, STUDY_STEPS, 2, dev)
+        # each fused reading's eager window and capture; none with the kernel off
+        want = [n * SCAN_K * 2 * len(readings[True]) for n in KERNEL_EVENTS.values()]
+        assert counters() == want, f"17a {loss}: counters {counters()}, want {want}"
+        launches = [a + c for a, c in zip(launches, counters())]
+        on, off = readings[True], readings[False]
+        log(f"[kernel_study] {loss} b{BATCH}, {STUDY_STEPS} timed steps a reading, in turns "
+            f"(on, off, off, on): kernel on {', '.join(f'{v:.2f}' for v in on)}, off "
+            f"{', '.join(f'{v:.2f}' for v in off)} steps/s; on/off "
+            f"{100 * (np.mean(on) / np.mean(off) - 1):+.2f}%")
+    log(f"[kernel_study] kernel means {launches[0]} + {launches[1]} launches (counters: "
+        f"captures with their warm-ups, the fused readings' eager windows and captures); "
+        f"card: {card}")
+    return launches
+
+
+def run_conv_studies(dev, card: str) -> None:
+    """17b/17c: ``tools/conv_study.py`` on CONV_CUT's shapes and variants and
+    ``tools/tc_study.py`` on TC_CUT's shapes (every variant), in NCHW and
+    ``channels_last``, bf16, batch 64, each variant gated first in float32
+    inside ``tf32_off`` (cuDNN's and cuBLAS's TF32 both off; the tools'
+    own gates switch both off and restore them too) and then timed with the
+    flags as the train step has them, STUDY_INNER calls per graph."""
+    from mmdgan_torch.tools import conv_study, tc_study
+
+    for name, keep in CONV_CUT.items():
+        shape = next(sh for sh in conv_study.SHAPES if sh[0].startswith(name))
+        cin, k, s = shape[3], shape[5], shape[6]
+        x, w = conv_study.shape_inputs(shape, dev, BATCH)
+        fns = {v: conv_study.variants(cin, k, s)[v] for v in keep}
+        errs = tf32_off(lambda: conv_study.gate(fns, (x, w, s), conv_study.GATE, shape[0]))
+        res = conv_study.time_shape(shape, fns, x, w, STUDY_INNER[0], STUDY_REPEAT)
+        for layout in conv_study.LAYOUTS:
+            for row in conv_study.table_rows(shape[0], res[layout]):
+                log(f"[conv_study] {layout} {row}")
+        d_cl, d_nchw = res["channels_last"]["direct"], res["nchw"]["direct"]
+        log(f"[conv_study] {shape[0]}: gate {json.dumps(errs)} (relative, f32, TF32 off); "
+            f"direct channels_last vs NCHW fwd x{d_nchw['fwd_us'] / d_cl['fwd_us']:.3f}, "
+            f"fwd+bwd x{d_nchw['fwdbwd_us'] / d_cl['fwdbwd_us']:.3f}")
+    for shape in conv_study.select(tc_study.SHAPES, ",".join(TC_CUT)):
+        x, w = tc_study.shape_inputs(shape, dev, BATCH)
+        errs = tf32_off(lambda: conv_study.gate(tc_study.GATED, (x, w), tc_study.GATE, shape[0]))
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            res = tc_study.time_shape(shape, x, w, STUDY_INNER[shape[1] >= 128], STUDY_REPEAT)
+        for line in out.getvalue().splitlines():
+            log(f"[tc_study] {line}")
+        d_cl, d_nchw = res["channels_last"]["direct"], res["nchw"]["direct"]
+        log(f"[tc_study] {shape[0]}: gate {json.dumps(errs)} (relative, f32, TF32 off); direct "
+            f"channels_last vs NCHW fwd x{d_nchw['fwd_us'] / d_cl['fwd_us']:.3f}, fwd+bwd "
+            f"x{d_nchw['fwdbwd_us'] / d_cl['fwdbwd_us']:.3f}; ps3 vs direct (NCHW) fwd "
+            f"x{res['nchw']['ps3']['fwd_speedup']:.3f}, fwd+bwd "
+            f"x{res['nchw']['ps3']['fwdbwd_speedup']:.3f}")
+    log(f"[conv_study] {len(CONV_CUT)} conv and {len(TC_CUT)} tc shapes, bf16 b{BATCH}, "
+        f"{STUDY_INNER} calls per graph, median of {STUDY_REPEAT} replays; card: {card}")
+
+
+def run_hbm_study(dev, card: str) -> None:
+    """17d: ``tools/hbm_study.py``'s HBM_CUT variants on cifar at full width,
+    b64 K=16 over its 50,000 seeded rows, HBM_STEPS timed steps each."""
+    from mmdgan_torch.tools import hbm_study
+
+    rates = {}
+    for v in HBM_CUT:
+        gc.collect()
+        torch.cuda.empty_cache()
+        call, ts = hbm_study.make_variant(v, "cifar", dev)
+        rates[v] = hbm_study.measure(call, ts, HBM_STEPS)
+        del call, ts
+    line = {"arch": "cifar", "steps": HBM_STEPS, "steps_per_sec": rates}
+    log(f"[hbm_study] {json.dumps(line)}; cursor / base {rates['cursor'] / rates['base']:.4f}, "
+        f"base / synthetic {rates['base'] / rates['synthetic']:.4f}; card: {card}")
+
+
+def run_export_study(dev, card: str) -> None:
+    """17e: ``tools/export_study.py`` on cifar at EXPORT_BATCH,
+    EXPORT_CALLS calls per surface."""
+    from mmdgan_torch.tools import export_study
+
+    line = export_study.study("cifar", EXPORT_BATCH, dev, EXPORT_CALLS)
+    assert set(line["img_per_sec"]) == {"model", "exp", "exp_args"}, line
+    log(f"[export_study] {json.dumps(line)}; card: {card}")
+
+
+def check_tc_gate_on_card(dev) -> None:
+    """17c's check: a ``tc`` layer (16 -> 32 channels at 64x64, spectral
+    norm) built with ``TC_PS3_MIN_SIZE`` at 64 runs ``conv_transpose_ps3``
+    and agrees with the same layer built at the default gate (the direct
+    route), float32, TF32 off: the output within 2e-5 and the gradients by
+    the input and the kernel within 2e-4, relative to their largest
+    entries."""
+    from mmdgan_torch.models import ops
+    from mmdgan_torch.tools.conv_study import relative_error
+
+    design = {"op": "tc", "out": 32, "kernel": 4, "strides": 2, "padding": "SAME",
+              "w_nm": "s", "act_k": 1.5}
+    direct = ops.ParametricOp(design, (16, 64, 64), compute_dtype=torch.float32)
+    old, ops.TC_PS3_MIN_SIZE = ops.TC_PS3_MIN_SIZE, 64
+    try:
+        ps3 = ops.ParametricOp(design, (16, 64, 64), compute_dtype=torch.float32)
+    finally:
+        ops.TC_PS3_MIN_SIZE = old
+    assert ps3.tc_ps3 and not direct.tc_ps3
+    params, state = direct.init(torch.Generator().manual_seed(0))
+    params = {k: v.to(dev) for k, v in params.items()}
+    state = {k: v.to(dev) for k, v in state.items()}
+    rng = np.random.RandomState(17)
+    x = torch.tensor(rng.randn(BATCH, 16, 64, 64).astype(np.float32), device=dev)
+    ct = torch.tensor(rng.randn(BATCH, 32, 128, 128).astype(np.float32), device=dev)
+
+    def run(op):
+        xg = x.clone().requires_grad_(True)
+        kg = params["kernel"].clone().requires_grad_(True)
+        y, _ = op.apply({"kernel": kg}, state, xg)
+        return (y.detach(),) + torch.autograd.grad(y, (xg, kg), ct)
+
+    got, want = tf32_off(lambda: (run(ps3), run(direct)))
+    errs = [relative_error(g, w) for g, w in zip(got, want)]
+    assert errs[0] < 2e-5 and max(errs[1:]) < 2e-4, errs
+    log(f"[tc_study] a tc layer at 64x64 with TC_PS3_MIN_SIZE = 64 (ps3) against the direct "
+        f"route on the card, f32, TF32 off: output {errs[0]:.2e}, d/dx {errs[1]:.2e}, "
+        f"d/dkernel {errs[2]:.2e} relative")
+
+
 def mesh_rank_main(argv: list) -> int:
     """``chip_smoke.py --mesh-rank KIND RANK WORLD STORE OUT CARD``: one
     rank of phase 13 (``nccl``, run by ``run_mesh_nccl``; ``gloo``, by
@@ -3489,7 +3679,7 @@ def mesh_rank_main(argv: list) -> int:
     return 0
 
 
-PHASES = tuple(range(3, 17))
+PHASES = tuple(range(3, 18))
 
 
 def parse_phases(argv: list) -> set:
@@ -3498,7 +3688,8 @@ def parse_phases(argv: list) -> set:
     if not argv:
         return set(PHASES)
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases N,N,...] (phases 3-16)")
+        raise SystemExit(f"usage: chip_smoke.py [--phases N,N,...] (phases {PHASES[0]}-"
+                         f"{PHASES[-1]})")
     chosen = {int(v) for v in argv[1].split(",") if v}
     if not chosen <= set(PHASES):
         raise SystemExit(f"chip_smoke.py: phases {sorted(chosen - set(PHASES))} do not exist")
@@ -3592,6 +3783,10 @@ def main() -> int:
         phase("16 scaling", lambda: run_scaling_study(dev, card), counted=True)
         pb = os.path.join(tmp, "fake_inception_v1.pb")
         phase("16 fake inception", lambda: write_fake_inception(pb))
+        phase("17 kernel study", lambda: run_kernel_study(dev, card, kernels), counted=True)
+        phase("17 conv and tc studies", lambda: run_conv_studies(dev, card))
+        phase("17 hbm study", lambda: run_hbm_study(dev, card))
+        phase("17 export study", lambda: run_export_study(dev, card))
 
         # the checks, which time nothing, in this process beside the phases'
         # subprocesses that time nothing either
@@ -3625,6 +3820,7 @@ def main() -> int:
             phase("12 same-class checks", lambda: check_same_class_data(dev, same_class_data()))
             phase("12 card vs CPU", lambda: check_catalogue_on_card(dev))
             phase("16 imagenet prep", lambda: check_imagenet_prep(dev, card, tmp, pb))
+            phase("17 tc gate on the card", lambda: check_tc_gate_on_card(dev))
         finally:
             errors = []
             for name, finish in pending:

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from mmdgan_torch.models.initializers import bias_initializer, weight_initializer
 from mmdgan_torch.models.scaling import avg_pool, max_pool
-from mmdgan_torch.ops.conv import Geometry
+from mmdgan_torch.ops.conv import Geometry, conv_transpose_ps3
 from mmdgan_torch.parallel.collectives import batch_moments
 from mmdgan_torch.ops.spectral_norm import (
     EPSI,
@@ -52,6 +52,16 @@ from mmdgan_torch.ops.spectral_norm import (
     spectral_norm_pim_apply,
     spectral_norm_pim_init,
 )
+
+# The transposed conv's lowering (``mmdgan_tpu/models/ops.py:50-63``): a
+# ``tc``/``tcck`` k=4/s2/SAME whose input is at least this tall runs as
+# ``ops/conv.py`` ``conv_transpose_ps3`` (one 3x3/s1 conv to 4*Cout
+# channels, then depth-to-space) instead of one ``F.conv_transpose2d``.
+# JAX measured the direct route faster end to end on the TPU, hence inf.
+# Read when an op is built and kept on it (``ParametricOp.tc_ps3``), so a
+# captured graph and its replays take one route: set it before building a
+# model to re-judge it (``tools/tc_study.py --e2e``).
+TC_PS3_MIN_SIZE = float("inf")
 
 # tf.layers.batch_normalization defaults (layer_func.py:960-966)
 BN_MOMENTUM = 0.99
@@ -93,6 +103,11 @@ class ParametricOp:
         self.geometry: Optional[Geometry] = None
         self._infer_shapes()
         self._setup_spectral_norm()
+        d = self.design
+        self.tc_ps3 = (d["op"] in ("tc", "tcck") and d["kernel"] == 4 and d["strides"] == 2
+                       and d.get("dilation", 1) == 1
+                       and str(d.get("padding", "SAME")).upper() == "SAME"
+                       and self.input_shape[1] >= TC_PS3_MIN_SIZE)
 
     # static shape inference (layer_func.py:566-685) ----------------------
     def _infer_shapes(self):
@@ -256,6 +271,8 @@ class ParametricOp:
 
     def _conv(self, x, w):
         cd = self.compute_dtype
+        if self.tc_ps3:
+            return conv_transpose_ps3(x.to(cd), w.to(cd))
         return self.geometry.forward(x.to(cd), w.to(cd))
 
     def apply(self, params: Dict, state: Dict, x: torch.Tensor, train: bool = True,

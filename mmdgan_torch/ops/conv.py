@@ -13,6 +13,12 @@ or zero-extended after one (``F.pad`` with negative widths crops).
 Kernel layouts are the port's: conv ``[out, in, k, k]``, transposed conv
 ``[in, out, k, k]`` (spatially flipped against the JAX package's HWIO).
 The adjoints are the maps the spectral norm's power iteration needs.
+
+``conv_transpose_ps3`` is the periodic-shuffle lowering of a ``tc``
+k=4/s2/SAME (``mmdgan_tpu/models/ops.py:383-414``): one 3x3/s1 conv to
+4*Cout channels, then depth-to-space. ``models/ops.py`` routes a ``tc``
+through it above ``TC_PS3_MIN_SIZE``; the spectral norm keeps the direct
+operator.
 """
 
 from __future__ import annotations
@@ -122,3 +128,37 @@ class Geometry:
                                       dilation=d)
         out = F.conv_transpose2d(y, w, stride=s, dilation=d)
         return F.pad(out, (-lw, padded[1] - full[1] - hw, -lh, padded[0] - full[0] - hh))
+
+
+def ps3_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The 3x3 kernel ``[4 * Cout, Cin, 3, 3]`` of ``conv_transpose_ps3``
+    from a ``tc`` kernel ``[Cin, Cout, 4, 4]`` (k=4, s=2, SAME).
+
+    Output phase (p, q) (row 2i + p, column 2j + q) reads input rows
+    i - 1 + p + a and columns j - 1 + q + b, a, b in {0, 1}, through tap
+    ``w[:, :, 3 - 2a - p, 3 - 2b - q]``: torch's transposed conv flips the
+    kernel that ``lax.conv_transpose`` does not, so the flipped kernel
+    ``wf`` holds JAX's taps ``W[2a + p, 2b + q]`` at ``wf[..., 2a + p, 2b +
+    q]``. Its even or odd rows and columns, padded to 3x3 at offset (p, q),
+    are phase (p, q)'s block of Cout output channels, blocks in (p, q)
+    order."""
+    cin, cout = w.shape[:2]
+    wf = w.flip(2, 3)
+    blocks = [F.pad(wf[:, :, p::2, q::2], (q, 1 - q, p, 1 - p)) for p in (0, 1) for q in (0, 1)]
+    return torch.stack(blocks).transpose(1, 2).reshape(4 * cout, cin, 3, 3)
+
+
+def ps3_conv(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """The 3x3/s1 conv (pad 1) to the four phases' channels, then
+    depth-to-space: channel (p, q, c) at (i, j) goes to (c, 2i + p, 2j + q)."""
+    n, _, h, wd = x.shape
+    cout = w3.shape[0] // 4
+    z = F.conv2d(x, w3, padding=1).reshape(n, 2, 2, cout, h, wd)
+    return z.permute(0, 3, 4, 1, 5, 2).reshape(n, cout, 2 * h, 2 * wd)
+
+
+def conv_transpose_ps3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``tc`` k=4/s2/SAME of ``x`` [N, Cin, H, W] by ``w`` [Cin, Cout, 4, 4]
+    as one 3x3 conv and a depth-to-space: equal to the direct route up to
+    summation order, forward and both gradients."""
+    return ps3_conv(x, ps3_kernel(w))

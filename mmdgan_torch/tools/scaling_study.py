@@ -35,10 +35,10 @@ def sweep_batches(batch: int, scan_k: int, img: int, device) -> dict:
         rng.randn(scan_k, batch, img, img, 3).astype(np.float32).clip(-1, 1), device=device)}
 
 
-def setup(arch: str, loss: str, batch: int, scan_k: int, device=None) -> tuple:
-    """``(step, ts, batches)``: the model of ``arch`` at full width, its
-    state from seed 0 with Adam 5e-4 (D) / 2e-4 (G), the graphed K-step
-    window and the fixed batch."""
+def setup(arch: str, loss: str, batch: int, scan_k: int, device=None, **model_kw) -> tuple:
+    """``(step, ts, batches)``: the model of ``arch`` at full width
+    (``model_kw`` to ``SNGan``), its state from seed 0 with Adam 5e-4 (D) /
+    2e-4 (G), the graphed K-step window and the fixed batch."""
     from mmdgan_torch import architectures, resolve_device
     from mmdgan_torch.models.sngan import SNGan
     from mmdgan_torch.train.optim import multi_opt_config
@@ -46,7 +46,7 @@ def setup(arch: str, loss: str, batch: int, scan_k: int, device=None) -> tuple:
 
     dev = resolve_device(device)
     model = SNGan(getattr(architectures, f"{arch}_architecture")(), num_class=0,
-                  loss_type=loss, device=dev)
+                  loss_type=loss, device=dev, **model_kw)
     opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
     ts = init_train_state(model, 0, opt_d, opt_g, device=dev)
     step = build_multi_step(model, opt_d, opt_g, scan_k, device=dev)

@@ -260,10 +260,11 @@ def test_chip_smoke_phase_selection_and_no_gpu_exit():
     script exits non-zero and prints no result."""
     import chip_smoke
 
-    assert chip_smoke.parse_phases([]) == set(range(3, 17))
+    assert chip_smoke.parse_phases([]) == set(range(3, 18))
     assert chip_smoke.parse_phases(["--phases", "3,16"]) == {3, 16}
     assert chip_smoke.parse_phases(["--phases", "15"]) == {3, 15}
-    for bad in (["--phases", "2,16"], ["--phases", "17"], ["--phase", "3"]):
+    assert chip_smoke.parse_phases(["--phases", "17"]) == {3, 17}
+    for bad in (["--phases", "2,16"], ["--phases", "18"], ["--phase", "3"]):
         with pytest.raises(SystemExit):
             chip_smoke.parse_phases(bad)
     if torch.cuda.is_available():
