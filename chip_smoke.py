@@ -23,16 +23,21 @@ Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: compile every CUDA kernel of the main path from ``mmdgan_torch/csrc``;
+2. build: compile every CUDA kernel of the main path from ``mmdgan_torch/csrc``,
+   and log each kernel's registers, shared memory and spills (``ptxas -v``
+   of a device-only compile beside the build);
 3. kernels: each kernel against its plain PyTorch version on the card,
-   then timed beside it: the forward's means (rtol 1e-5 / atol 1e-6) and
-   the backward's gradients (rtol 1e-4, atol 1e-8 plus the mask-rounding
-   term of ``kernel_means_backward_atol``) at (64, 16), (23, 5) and
-   (256, 16) and on a saturated input whose raw gen-gen distances go
-   below 0, two launches of each bitwise equal, and the autograd path of
+   then timed beside it: the forward's means (rtol 1e-5 / atol 1e-6) at
+   (64, 16), (23, 5) and (256, 16); the backward's gradients (rtol 1e-4,
+   atol 1e-8 plus the mask-rounding term of ``kernel_means_backward_atol``)
+   at those, (64, 256), (256, 256), the ragged (100, 37) and the smallest
+   (2, 1), and on saturated inputs whose raw gen-gen distances go below 0
+   at (64, 16), (256, 16) and (256, 256), for four cotangents; two
+   launches of each bitwise equal, three replays of a captured backward
+   bitwise equal to its eager launch, and the autograd path of
    ``fused_kernel_means`` against autograd of the plain means; then both
-   at phase 16b's smallest and largest batch, (16, 16) and (256, 16),
-   held, timed and bounded as at 15b's shapes;
+   held, timed and bounded at (16, 16), (256, 16), (64, 8), (128, 8),
+   (128, 2), (64, 256) and (256, 256), beside their plain versions;
 4. reference: a narrow float32 model, three steps on the card (kernel path)
    against the same three steps on the CPU (plain path), after a first
    'rmb' step that both run (step 0 is degenerate), TF32 off, for
@@ -189,8 +194,8 @@ Phases, each fatal on failure:
      kernel-means launches per step); then the cifar CLI in this process
      over the records (``--data-dir``, ``--skip-metrics``), its
      metrics.jsonl read back with ``utils/events.py``;
-   - 15b: both kernels against their plain versions at (128, 8),
-     (128, 2) and (64, 8), with phase 3's tolerances, timed and bounded;
+   - 15b: the kernels at SimData's, figure1's and 15e's widths: timed in
+     phase 3;
    - 15c: ``SimData`` learning on the card (tests/test_integration.py's
      recipe, 800 f32 steps in graphed windows, one more replay profiled):
      MMD below 0.7 of its start, the mean within 0.25 of mu;
@@ -222,9 +227,8 @@ Phases, each fatal on failure:
      mean and covariance agree at rtol 1e-3.
 17. the five studies (``mmdgan_torch/tools``), each at a cut size that the
    log names:
-   - 17a: ``kernel_study``: both kernels against their plain versions at
-     (64, 256) and (256, 256) with phase 3's tolerances, timed and
-     bounded; the study's gate (its scalar and gradient, kernel against
+   - 17a: ``kernel_study`` (both kernels held and timed at d = 256 in
+     phase 3): the study's gate (its scalar and gradient, kernel against
      plain) and microbench at (64, 16), (64, 256), (256, 16), (256, 256),
      64 chained iterations per graph (the tool's 512); the CIFAR step with
      ``use_fused_kernel`` on and off for rep and rmb_gp at b64, 64 timed
@@ -264,6 +268,7 @@ import tempfile
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from functools import cache, partial
 from pathlib import Path
 
@@ -298,6 +303,10 @@ from mmdgan_torch.train.step import (  # noqa: E402
     init_train_state,
     same_class_tables,
 )
+from mmdgan_torch.tools.kernel_study import (  # noqa: E402
+    kernel_means_backward_bound_ms,
+    kernel_means_bound_ms,
+)
 from mmdgan_torch.tools.profile_step import check_raw_activities, window_timeline  # noqa: E402
 from mmdgan_torch.train.trainer import Agent  # noqa: E402
 
@@ -309,6 +318,15 @@ DATA_WINDOWS = 4                    # phase 7's graphed vs eager device-data win
 # the kernel-means kernels by their names in a profile, and launches per step
 KERNEL_EVENTS = {"kernel_means_fwd": 1, "kernel_means_bwd": 2}
 KERNEL_SHAPES = [(64, 16), (23, 5), (256, 16)]
+# the backward's shapes: the forward's, d = 256, a ragged pair across every
+# tile and chunk edge, and the smallest input the wrapper takes; saturated
+# inputs at three of them
+BACKWARD_SHAPES = KERNEL_SHAPES + [(64, 256), (256, 256), (100, 37), (2, 1)]
+SATURATED_SHAPES = [(64, 16), (256, 16), (256, 256)]
+GRAPH_REPLAYS = 3                   # replays of a captured backward held to the eager launch
+# phase 3's timed shapes beside the main path's (64, 16): phase 16b's smallest
+# and largest batch, 15e's (64, 8) and SimData's and figure1's widths, d = 256
+TIMED_SHAPES = [(16, 16), (256, 16), (64, 8), (128, 8), (128, 2), (64, 256), (256, 256)]
 # phase 4's losses, and phase 9's: every distinct branch of the dispatcher
 CPU_CHECK_LOSSES = ("rmb", "hinge", "mmd_t", "cramer", "mgb", "rep_ds", "rmb_ds")
 LOSSES = ("logistic", "hinge", "wasserstein", "mmd_g", "mgb", "mmd_t", "cramer", "mmd_g_mix",
@@ -332,13 +350,6 @@ OPT_MEASURE_CALLS = 4               # timed windows per optimizer (64 steps)
 PLAIN_CALLS = 200                   # timed calls of a plain version (each 0.5-3 ms)
 VAL_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-8)
-# H100 SXM data sheet: HBM bandwidth, fp32 rate outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-# exponentials run on the special-function units, which issue 16 results
-# per SM per clock against 128 fp32 FMAs (256 flops): the fp32 rate / 16
-# (CUDA C++ Programming Guide, arithmetic instruction throughput, 9.0)
-PEAK_SFU_PER_S = PEAK_FP32_PER_S / 16
 
 
 _START = []   # the main process's start: its log lines begin with the seconds since
@@ -419,46 +430,6 @@ def graph_ms(fn, per_graph: int = 100, replays: int = 20) -> float:
     return cuda_ms(graph.replay, replays, warmup=2) / per_graph
 
 
-def kernel_means_bound_ms(b: int, d: int) -> tuple:
-    """(bound in ms, 'bytes' or 'operations', the pipe that bounds it) for
-    the six means. Bytes: each input read once, 24 bytes written. Entries:
-    the B(B-1)/2 above the diagonal of each symmetric matrix (gen-gen,
-    data-data) and all B^2 of gen-data. Per entry 2d flops of Gram product,
-    3 of distance, one exponential on the special-function units and 2
-    flops to scale and add it; per entry of a symmetric matrix 2 more
-    (select the bounded kernel, add it); 2 flops per score element for the
-    squared norms. The fp32 and special-function pipes run side by side,
-    so the operations take the longer of their two times."""
-    half = b * (b - 1) // 2
-    entries = 2 * half + b * b
-    flops = entries * (2 * d + 5) + 2 * half * 2 + 2 * 2 * b * d
-    times = {"bytes": (2 * b * d * 4 + 6 * 4) / PEAK_BYTES_PER_S,
-             "fp32": flops / PEAK_FP32_PER_S,
-             "special-function": entries / PEAK_SFU_PER_S}
-    by = max(times, key=times.get)
-    return times[by] * 1e3, ("bytes" if by == "bytes" else "operations"), by
-
-
-def kernel_means_backward_bound_ms(b: int, d: int) -> tuple:
-    """(bound in ms, 'bytes' or 'operations', the pipe that bounds it) for
-    the gradient of the six means. Bytes: both inputs and the [6] cotangent
-    read once, both [B, d] gradients written once. Entries as in
-    ``kernel_means_bound_ms``, each computed once (the kernel's row owners
-    compute a symmetric entry twice; the function needs it once): 2d flops
-    of Gram product, 3 of distance, one exponential, 3 to form the
-    coefficient (select the bounded part, scale, multiply by k), and 2 * 2d
-    to accumulate it into both endpoint rows; 2 flops per score element
-    for the squared norms."""
-    half = b * (b - 1) // 2
-    entries = 2 * half + b * b
-    flops = entries * (6 * d + 6) + 2 * 2 * b * d
-    times = {"bytes": ((2 * b * d + 6) * 4 + 2 * b * d * 4) / PEAK_BYTES_PER_S,
-             "fp32": flops / PEAK_FP32_PER_S,
-             "special-function": entries / PEAK_SFU_PER_S}
-    by = max(times, key=times.get)
-    return times[by] * 1e3, ("bytes" if by == "bytes" else "operations"), by
-
-
 def check_kernel_means(dev) -> dict:
     """Phase 3: the CUDA kernel against its plain version, then timed."""
     max_err = 0.0
@@ -496,16 +467,37 @@ def check_kernel_means(dev) -> dict:
             "device_ms": device_ms, "plain_device_ms": plain_device_ms}
 
 
+def replayed(fn, replays: int = GRAPH_REPLAYS) -> list:
+    """``fn()``'s outputs after each of ``replays`` replays of one CUDA graph
+    that captured it (warmed on a side stream first)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    runs = []
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in out])
+    return runs
+
+
 def check_kernel_means_backward(dev) -> dict:
     """Phase 3: the backward kernel against its plain version (the closed
-    form) on ordinary scores at the three shapes and on one saturated input
-    at the main path's shape, for each cotangent; two launches bitwise
-    equal; the autograd path of ``fused_kernel_means`` (both kernels)
-    against autograd of the plain means; then timed."""
+    form) on ordinary scores at BACKWARD_SHAPES and on saturated inputs at
+    SATURATED_SHAPES, for each cotangent; two launches bitwise equal, and
+    GRAPH_REPLAYS replays of a captured launch bitwise equal to the eager
+    one (its tickets reset); the autograd path of ``fused_kernel_means``
+    (both kernels) against autograd of the plain means; then timed."""
     max_err = 0.0
     inputs = [(f"{(b, d)}", scores(b, d, seed=i, device=dev))
-              for i, (b, d) in enumerate(KERNEL_SHAPES)]
-    inputs.append((f"saturated {(BATCH, 16)}", saturated_scores(BATCH, 16, seed=5, device=dev)))
+              for i, (b, d) in enumerate(BACKWARD_SHAPES)]
+    inputs += [(f"saturated {(b, d)}", saturated_scores(b, d, seed=5 + i, device=dev))
+               for i, (b, d) in enumerate(SATURATED_SHAPES)]
     cts = cotangents(dev)
     for what, (sg, sx) in inputs:
         for name, ct in cts.items():
@@ -520,6 +512,11 @@ def check_kernel_means_backward(dev) -> dict:
                 f"backward kernel not deterministic at {what} ct={name}")
 
         ct = cts["random"]
+        eager = cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0)
+        for i, run in enumerate(replayed(
+                lambda: cuda_mmd.kernel_means_backward_cuda(sg, sx, ct, 1.0))):
+            assert all(torch.equal(g, h) for g, h in zip(run, eager)), (
+                f"backward replay {i} differs from the eager launch at {what}")
         a, c = sg.clone().requires_grad_(True), sx.clone().requires_grad_(True)
         g_fused = torch.autograd.grad(cuda_mmd.fused_kernel_means(a, c, 1.0), (a, c), ct)
         g_plain = torch.autograd.grad(cuda_mmd.kernel_means_reference(a, c, 1.0), (a, c), ct)
@@ -527,7 +524,8 @@ def check_kernel_means_backward(dev) -> dict:
         assert_grads_close(g_fused, g_plain, atols, f"fused_kernel_means autograd at {what}")
         negative = int((cuda_mmd.raw_distances(sg, sx)[0] < 0).sum())
         log(f"[kernels] kernel_means_backward {what}: {len(cts)} cotangents agree with the "
-            f"closed form, deterministic; fused autograd agrees with autograd of the plain "
+            f"closed form, deterministic, {GRAPH_REPLAYS} graph replays bitwise equal to the "
+            f"eager launch; fused autograd agrees with autograd of the plain "
             f"means (mask-rounding atol {atols[0]:.2e} / {atols[1]:.2e} for the random "
             f"cotangent); {negative} raw gen-gen distances below 0")
 
@@ -2900,16 +2898,13 @@ def start_sharding_smokes(card: str, tmp: str):
 
 
 # ----------------------------------------------------------------------
-# phase 15: real CIFAR-format data, the kernel at new shapes, SimData,
-# figure1, a TF1 checkpoint
+# phase 15: real CIFAR-format data, SimData, figure1, a TF1 checkpoint
 # ----------------------------------------------------------------------
 
 CIFAR_FILES, CIFAR_PER_FILE = 5, 10000      # data_batch_{1..5}.bin, 3,073 bytes a record
 READER_WINDOWS = 8                  # timed host-fed windows per reader and turn
 COMPARE_BATCHES = 256               # batches held bitwise between the two readers
 CLI_STEPS = 64                      # the CLI's chunk over the converted records
-# the SimData path's scores, figure1's particles, the TF1-imported narrow model's (15e)
-NEW_SHAPES = [(128, 8), (128, 2), (64, 8)]
 SIM_STEPS, SIM_BATCH = 800, 128     # tests/test_integration.py:46-75
 FIG1_STEPS, FIG1_CHECK = 600, 10
 TF1_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
@@ -3101,7 +3096,7 @@ def check_real_cifar(dev, card: str, tmp: str) -> list:
 def check_kernel_shapes(dev, kernels: list, shapes: list, seed: int) -> None:
     """Both kernels against their plain versions at ``shapes`` (scores from
     ``seed`` + i), with phase 3's tolerances, and timed (CUDA events; a
-    replayed graph): phase 3 at SWEEP_SHAPES, 15b at NEW_SHAPES."""
+    replayed graph): phase 3 at TIMED_SHAPES."""
     cts = cotangents(dev)
     for i, (b, d) in enumerate(shapes):
         sg, sx = scores(b, d, seed=seed + i, device=dev)
@@ -3270,11 +3265,10 @@ def check_tf1_checkpoint(dev, card: str) -> list:
     return launches
 
 
-def run_real_data_and_tools(dev, card: str, kernels: list) -> list:
+def run_real_data_and_tools(dev, card: str) -> list:
     """Phase 15; returns its kernel-means launches, [forward, backward]."""
     with tempfile.TemporaryDirectory() as tmp:
         parts = [check_real_cifar(dev, card, tmp)]
-    check_kernel_shapes(dev, kernels, NEW_SHAPES, seed=10)
     parts += [check_simdata(dev, card), check_figure1(dev, card), check_tf1_checkpoint(dev, card)]
     return [sum(p[i] for p in parts) for i in range(2)]
 
@@ -3284,7 +3278,6 @@ def run_real_data_and_tools(dev, card: str, kernels: list) -> list:
 # inception graph with the rehearsal, ImageNet prep)
 # ----------------------------------------------------------------------
 
-SWEEP_SHAPES = [(16, 16), (256, 16)]    # the kernels at 16b's smallest and largest batch
 SWEEP_STEPS = 192                   # 16b: timed steps per point (the tool's default 384)
 SWEEP_REPEAT = (8, 16, 32)          # 16b: K points timed again after the sweep, for the noise
 QUALITY_STEPS = 32                  # 16c: the quality_smoke run that writes the checkpoint
@@ -3493,7 +3486,6 @@ def check_imagenet_prep(dev, card: str, tmp: str, pb: str) -> None:
 # H100 (kernel, conv, tc, device-data sampling, export), at a cut size
 # ----------------------------------------------------------------------
 
-STUDY_SHAPES = [(64, 256), (256, 256)]  # 17a: the kernels at d = 256, beside phase 3's d = 16
 STUDY_ITERS = 64                    # 17a: chained iterations per graph (the tool's 512)
 STUDY_REPEAT = 3                    # 17a-17c: timed replays per reading (the tools' 5, 7, 7)
 STUDY_STEPS = 64                    # 17a: timed steps per step A/B reading (the tool's 512)
@@ -3505,11 +3497,10 @@ HBM_CUT, HBM_STEPS = ("synthetic", "base", "pregather", "cursor"), 128   # 17d (
 EXPORT_BATCH, EXPORT_CALLS = 256, 16    # 17e: cifar (the tool's default celeba, lsun at b1024, 64)
 
 
-def run_kernel_study(dev, card: str, kernels: list) -> list:
-    """17a: ``tools/kernel_study.py`` at a cut size. Both kernels against
-    their plain versions at STUDY_SHAPES (phase 3's tolerances, timed and
-    bounded, ``check_kernel_shapes``); the study's gate (its scalar and
-    gradient, kernel against plain) and its microbench at all four (B, d),
+def run_kernel_study(dev, card: str) -> list:
+    """17a: ``tools/kernel_study.py`` at a cut size (phase 3 holds and times
+    both kernels at d = 256): the study's gate (its scalar and gradient,
+    kernel against plain) and its microbench at all four (B, d),
     STUDY_ITERS chained iterations per graph; then the CIFAR step with
     ``use_fused_kernel`` on and off for STUDY_AB at b64, STUDY_STEPS timed
     steps, in turns twice. The wrappers' counters, zeroed after the gates,
@@ -3518,7 +3509,6 @@ def run_kernel_study(dev, card: str, kernels: list) -> list:
     window and capture, none with the kernel off. Returns those launches."""
     from mmdgan_torch.tools import kernel_study as study
 
-    check_kernel_shapes(dev, kernels, STUDY_SHAPES, seed=40)
     rows, launches = [], [0, 0]
     for b, d in study.MICRO_SHAPES:
         err = study.gate(b, d, dev)
@@ -3719,10 +3709,14 @@ def main() -> int:
 
     existed = _build.library_path(cuda_mmd.SOURCE).exists()
     start = time.perf_counter()
-    _build.build(cuda_mmd.SOURCE)
-    cuda_mmd._library()
-    log(f"[build] {cuda_mmd.SOURCE}: {time.perf_counter() - start:.2f} s "
-        f"({'loaded from build/' if existed else 'nvcc sm_90a'})")
+    with ThreadPoolExecutor(1) as pool:   # ptxas -v beside the build
+        usage = pool.submit(_build.resource_usage, cuda_mmd.SOURCE)
+        _build.build(cuda_mmd.SOURCE)
+        cuda_mmd._library()
+        log(f"[build] {cuda_mmd.SOURCE}: {time.perf_counter() - start:.2f} s "
+            f"({'loaded from build/' if existed else 'nvcc sm_90a'})")
+        for line in usage.result():
+            log(f"[build] {line}")
 
     seconds, launches = {}, []
 
@@ -3751,7 +3745,7 @@ def main() -> int:
 
     def shapes():
         kernels = [check_kernel_means(dev), check_kernel_means_backward(dev)]
-        check_kernel_shapes(dev, kernels, SWEEP_SHAPES, seed=20)
+        check_kernel_shapes(dev, kernels, TIMED_SHAPES, seed=20)
         return kernels
 
     # phases 7 and 12b's datasets, each built once for its timed part and
@@ -3777,13 +3771,13 @@ def main() -> int:
         os.makedirs(os.path.join(tmp, "14"))
         phase("14 fsdp NCCL", lambda: run_fsdp_nccl(card, os.path.join(tmp, "14")),
               counted=True)
-        phase("15 real data and tools", lambda: run_real_data_and_tools(dev, card, kernels),
+        phase("15 real data and tools", lambda: run_real_data_and_tools(dev, card),
               counted=True)
         phase("16 preflight", lambda: run_preflight(card))
         phase("16 scaling", lambda: run_scaling_study(dev, card), counted=True)
         pb = os.path.join(tmp, "fake_inception_v1.pb")
         phase("16 fake inception", lambda: write_fake_inception(pb))
-        phase("17 kernel study", lambda: run_kernel_study(dev, card, kernels), counted=True)
+        phase("17 kernel study", lambda: run_kernel_study(dev, card), counted=True)
         phase("17 conv and tc studies", lambda: run_conv_studies(dev, card))
         phase("17 hbm study", lambda: run_hbm_study(dev, card))
         phase("17 export study", lambda: run_export_study(dev, card))

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -99,6 +100,24 @@ def build(source: str) -> Path:
         out = local
     os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
     return out
+
+
+def resource_usage(source: str) -> list:
+    """What ``ptxas -v`` says of each kernel of the CUDA source
+    ``csrc/<source>`` (registers, shared memory, spill stores and loads):
+    a device-only compile with the library's flags into a temporary cubin,
+    so it can run beside ``build``. Returns the ``ptxas info`` lines and
+    the stack and spill line of each kernel."""
+    with tempfile.TemporaryDirectory() as tmp:
+        device_flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        cmd = [_nvcc(), *device_flags, "-cubin", "-Xptxas", "-v",
+               "-o", os.path.join(tmp, "kernels.cubin"), str(CSRC / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -cubin failed on {source} (exit {proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+            if line.startswith("ptxas info") or "spill" in line]
 
 
 def load(source: str) -> ctypes.CDLL:

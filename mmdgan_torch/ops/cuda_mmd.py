@@ -35,6 +35,8 @@ LOWER_BOUND = 0.25
 UPPER_BOUND = 4.0
 MEAN_KEYS = ("e_kxx", "e_kxy", "e_kyy", "e_kxx_b", "e_kxy_b", "e_kyy_b")
 _TILE = 32   # rows of the kernels' tiles (kTile in the source)
+# the backward's ticket counters cover kMaxTiles = 128 row tiles per side
+BACKWARD_MAX_BATCH = 128 * _TILE
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,7 +45,7 @@ def _library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mmd_kernel_means.argtypes = [p, p, p, i, i, f, f, f, i, p]
     lib.mmd_kernel_means.restype = i
-    lib.mmd_kernel_means_backward.argtypes = [p, p, p, p, p, i, i, f, f, f, i, p]
+    lib.mmd_kernel_means_backward.argtypes = [p, p, p, p, p, p, i, i, f, f, f, i, p]
     lib.mmd_kernel_means_backward.restype = i
     lib.mmd_error_string.argtypes = [i]
     lib.mmd_error_string.restype = ctypes.c_char_p
@@ -97,12 +99,24 @@ def kernel_means_cuda(s_gen: torch.Tensor, s_x: torch.Tensor, sigma: float = 1.0
 kernel_means_cuda.launches = 0
 
 
+def backward_scratch_floats(batch: int, dim: int) -> int:
+    """Floats of the backward kernel's partial strips at [B, d]: 2 sides x
+    t row tiles x 2t slots of [32, d], t = ceil(B / 32). Raises above the B
+    its ticket counters cover."""
+    if batch > BACKWARD_MAX_BATCH:
+        raise ValueError(f"kernel_means_backward_cuda: B = {batch} is above the kernel's "
+                         f"{BACKWARD_MAX_BATCH} (its ticket counters cover {BACKWARD_MAX_BATCH // _TILE} "
+                         "row tiles of 32 per side)")
+    t = -(-batch // _TILE)
+    return 4 * t * t * _TILE * dim
+
+
 def kernel_means_backward_cuda(s_gen: torch.Tensor, s_x: torch.Tensor, ct: torch.Tensor,
                                sigma: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the backward kernel on the current stream: the gradients of
     ``<ct, means>`` with respect to ``s_gen`` and ``s_x``. ``ct`` is the
     float32 [6] cotangent on the scores' device; it is read on the device,
-    so the call never waits for it."""
+    so the call never waits for it. B is at most ``BACKWARD_MAX_BATCH``."""
     who = "kernel_means_backward_cuda"
     if ct.dtype != torch.float32 or ct.shape != (6,) or not ct.is_contiguous():
         raise ValueError(f"{who}: ct must be a contiguous float32 [6], "
@@ -110,13 +124,15 @@ def kernel_means_backward_cuda(s_gen: torch.Tensor, s_x: torch.Tensor, ct: torch
     batch, dim = _check_scores(who, s_gen, s_x)
     if ct.device != s_gen.device:
         raise ValueError(f"{who}: ct is on {ct.device}, the scores on {s_gen.device}")
+    scratch = backward_scratch_floats(batch, dim)
     lib = _library()
-    grads = torch.empty((2, batch, dim), dtype=torch.float32, device=s_gen.device)
-    g_gen, g_x = grads[0], grads[1]
+    # both gradients, then the partial strips
+    buf = torch.empty(2 * batch * dim + scratch, dtype=torch.float32, device=s_gen.device)
+    g_gen, g_x = buf[:2 * batch * dim].view(2, batch, dim)
     err = lib.mmd_kernel_means_backward(
-        s_gen.data_ptr(), s_x.data_ptr(), ct.data_ptr(), g_gen.data_ptr(), g_x.data_ptr(),
-        batch, dim, 1.0 / (2.0 * sigma ** 2), LOWER_BOUND, UPPER_BOUND, s_gen.device.index,
-        torch.cuda.current_stream(s_gen.device).cuda_stream)
+        s_gen.data_ptr(), s_x.data_ptr(), ct.data_ptr(), buf[2 * batch * dim:].data_ptr(),
+        g_gen.data_ptr(), g_x.data_ptr(), batch, dim, 1.0 / (2.0 * sigma ** 2), LOWER_BOUND,
+        UPPER_BOUND, s_gen.device.index, torch.cuda.current_stream(s_gen.device).cuda_stream)
     _raise_on(who, err)
     kernel_means_backward_cuda.launches += 1
     return g_gen, g_x

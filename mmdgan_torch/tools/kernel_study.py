@@ -18,7 +18,8 @@ backward) earn its place as the default (``use_fused_kernel=True``)?
    the least time the card could take for the forward, and for the
    forward and the backward (the larger of bytes over 3.35 TB/s and
    operations over the fp32 and special-function rates, H100 SXM data
-   sheet; ``chip_smoke.py``'s formulas).
+   sheet): ``kernel_means_bound_ms`` and ``kernel_means_backward_bound_ms``,
+   which ``chip_smoke.py`` uses too.
 
 2. **Full train step**: the CIFAR SNGAN with ``use_fused_kernel`` on and
    off for rep, rmb and rmb_gp at B in {64, 256}, graphed K=16 windows
@@ -58,8 +59,10 @@ VAL_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-8)
 # d(scalar)/d(means) of JAX's scalar
 SCALAR_CT = (1.0, -2.0, 1.0, 0.1, -0.1, 0.1)
-# H100 SXM data sheet: HBM bandwidth, fp32 rate outside the tensor cores;
-# exponentials on the special-function units at 1/16 of the fp32 rate
+# H100 SXM data sheet: HBM bandwidth, fp32 rate outside the tensor cores.
+# Exponentials run on the special-function units, which issue 16 results
+# per SM per clock against 128 fp32 FMAs (256 flops): the fp32 rate / 16
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, 9.0)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_SFU_PER_S = PEAK_FP32_PER_S / 16
@@ -76,12 +79,15 @@ def _bound(times: Dict[str, float]) -> tuple:
 
 
 def kernel_means_bound_ms(b: int, d: int) -> tuple:
-    """(ms, 'bytes' or 'operations', pipe) for the six means:
-    ``chip_smoke.py``'s ``kernel_means_bound_ms``. Bytes: each input read
-    once, 24 written; per entry of the B(B-1)/2 above each symmetric
-    matrix's diagonal and the B^2 of gen-data, 2d flops of Gram product,
-    3 of distance, one exponential and 2 to scale and add, 2 more per
-    symmetric entry, 2 per score element for the norms."""
+    """(bound in ms, 'bytes' or 'operations', the pipe that bounds it) for
+    the six means. Bytes: each input read once, 24 bytes written. Entries:
+    the B(B-1)/2 above the diagonal of each symmetric matrix (gen-gen,
+    data-data) and all B^2 of gen-data. Per entry 2d flops of Gram product,
+    3 of distance, one exponential on the special-function units and 2
+    flops to scale and add it; per entry of a symmetric matrix 2 more
+    (select the bounded kernel, add it); 2 flops per score element for the
+    squared norms. The fp32 and special-function pipes run side by side,
+    so the operations take the longer of their two times."""
     half = b * (b - 1) // 2
     entries = 2 * half + b * b
     flops = entries * (2 * d + 5) + 2 * half * 2 + 2 * 2 * b * d
@@ -90,11 +96,14 @@ def kernel_means_bound_ms(b: int, d: int) -> tuple:
 
 
 def kernel_means_backward_bound_ms(b: int, d: int) -> tuple:
-    """(ms, 'bytes' or 'operations', pipe) for the gradient of the six
-    means: ``chip_smoke.py``'s ``kernel_means_backward_bound_ms``. Bytes:
-    both inputs and the cotangent read, both gradients written; per entry
-    2d + 3 flops to recompute the distance, one exponential, 3 for the
-    coefficient and 4d to accumulate into both rows; 2 per score element."""
+    """(bound in ms, 'bytes' or 'operations', the pipe that bounds it) for
+    the gradient of the six means. Bytes: both inputs and the [6] cotangent
+    read once, both [B, d] gradients written once. Entries as in
+    ``kernel_means_bound_ms``, each computed once: 2d flops of Gram
+    product, 3 of distance, one exponential, 3 to form the coefficient
+    (select the bounded part, scale, multiply by k), and 2 * 2d to
+    accumulate it into both endpoint rows; 2 flops per score element for
+    the squared norms."""
     half = b * (b - 1) // 2
     entries = 2 * half + b * b
     flops = entries * (6 * d + 6) + 2 * 2 * b * d

@@ -20,6 +20,9 @@ within rounding of a threshold and that term is 0; on the saturated input
 rounding) it bounds the sum of those pairs' terms.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +35,8 @@ from mmdgan_tpu.ops.losses import gan_loss as jax_gan_loss
 from mmdgan_tpu.ops.pallas_mmd import fused_kernel_means as jax_fused_kernel_means
 from mmdgan_torch.ops import cuda_mmd
 from mmdgan_torch.ops.cuda_mmd import (
+    LOWER_BOUND as LOWER,
+    UPPER_BOUND as UPPER,
     fused_kernel_means,
     kernel_means_backward_atol,
     kernel_means_backward_cuda,
@@ -48,6 +53,10 @@ from mmdgan_torch.ops.losses import gan_loss
 torch.set_num_threads(1)
 
 SHAPES = [(64, 16), (23, 5), (256, 16)]
+# the backward's closed form also at the widths of the backward kernel's
+# chunked design: d = 256, and a ragged (100, 37) across every tile and
+# chunk edge
+BACKWARD_SHAPES = SHAPES + [(64, 256), (100, 37)]
 VAL = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-8)
 # d(loss)/d(means) of the losses the train step differentiates, with the
@@ -198,7 +207,7 @@ def assert_grads_close(got, want, atols, what):
 
 @pytest.mark.parametrize("ct_name", sorted(COTANGENTS))
 @pytest.mark.parametrize("kind", sorted(INPUTS))
-@pytest.mark.parametrize("b,d", SHAPES)
+@pytest.mark.parametrize("b,d", BACKWARD_SHAPES)
 def test_backward_reference_matches_jax_vjp(b, d, kind, ct_name):
     sg, sx = INPUTS[kind](b, d, seed=5)
     ct = COTANGENTS[ct_name]
@@ -268,3 +277,148 @@ def test_backward_wrapper_refuses_what_it_cannot_take(monkeypatch):
         with pytest.raises(ValueError, match="ct must be"):
             kernel_means_backward_cuda(sg, sx, ct)
     assert kernel_means_backward_cuda.launches == before
+
+
+# The backward kernel's schedule, as ``csrc/kernel_means.cu`` maps its
+# blocks (``kernel_means_bwd``, ``strip``) and sizes its clusters
+# (``backward_ranks``): the tests below hold its algebra and its coverage.
+# The ragged (100, 37) and the smallest input (2, 1) cross every tile edge.
+GEOMETRY_SHAPES = [(2, 1), (23, 5), (64, 16), (100, 37), (256, 16), (64, 256), (40, 300)]
+
+
+def backward_pieces(tiles):
+    """The pieces in block order: ``(pair, row tile, column tile, row strip,
+    column strip)``, pair 0 gen-gen, 1 gen-data, 2 data-data, each strip its
+    ``(side, row tile, slot)`` (side 0 gen, 1 data), the column strip None
+    on a symmetric matrix's diagonal tile (its rows hold both ends)."""
+    upper = [(r, c) for r in range(tiles) for c in range(r, tiles)]
+    full = [(r, c) for r in range(tiles) for c in range(tiles)]
+    for pair, pieces in ((0, upper), (1, full), (2, upper)):
+        for r, c in pieces:
+            row = (1 if pair == 2 else 0, r, c if pair == 0 else tiles + c)
+            col = None
+            if pair == 1 or r != c:
+                col = (0 if pair == 0 else 1, c, tiles + r if pair == 2 else r)
+            yield pair, r, c, row, col
+
+
+def backward_ranks(pieces, dim, fit):
+    """``(ranks, chunks per rank)`` of a piece on a card that holds ``fit``
+    blocks of the kernel at once: as many ranks as the 32-feature chunks of
+    d allow, up to 8, while pieces x ranks blocks fit; at least one."""
+    chunks = -(-dim // 32)
+    cap = max(1, min(8, chunks, fit // pieces))
+    per_rank = -(-chunks // cap)
+    return -(-chunks // per_rank), per_rank
+
+
+@pytest.mark.parametrize("b,d", GEOMETRY_SHAPES)
+def test_backward_pieces_cover_every_tile_once(b, d):
+    """One cluster per piece: every (row tile, column tile) of gen-data
+    once, every tile of gen-gen and data-data once as a piece or as the
+    mirror of an upper piece, and every (side, row tile, slot) strip written
+    by exactly one piece; 2t strips per (side, row tile), as the ticket
+    counts, in the wrapper's scratch. The ranks of a cluster split the
+    chunks of d, none empty, and the grid fits a card that holds ``fit``
+    blocks at once where it can."""
+    t = -(-b // 32)
+    pieces = list(backward_pieces(t))
+    assert len(pieces) == t * (t + 1) + t * t
+    covered = {0: [], 1: [], 2: []}
+    strips = []
+    for pair, r, c, row, col in pieces:
+        covered[pair].append((r, c))
+        if pair != 1 and r != c:
+            covered[pair].append((c, r))
+        strips += [row] + ([col] if col is not None else [])
+        assert (col is None) == (pair != 1 and r == c)
+    tiles = sorted((r, c) for r in range(t) for c in range(t))
+    assert all(sorted(v) == tiles for v in covered.values())
+    assert sorted(strips) == sorted((s, r, k) for s in range(2) for r in range(t)
+                                    for k in range(2 * t))
+    assert cuda_mmd.backward_scratch_floats(b, d) == len(strips) * 32 * d
+    chunks = -(-d // 32)
+    for fit in (1, 264, 10 ** 6):   # no room, an H100 at 2 blocks an SM, room for all
+        ranks, per = backward_ranks(len(pieces), d, fit)
+        assert 1 <= ranks <= 8 and (ranks - 1) * per < chunks <= ranks * per
+        assert ranks == 1 or len(pieces) * ranks <= fit
+
+
+@pytest.mark.parametrize("kind", sorted(INPUTS))
+@pytest.mark.parametrize("b,d", GEOMETRY_SHAPES)
+def test_backward_pieces_assemble_the_closed_form(b, d, kind):
+    """The kernel's algebra on its schedule, in float64: each piece's
+    coefficient tile w gives its row strip sum_c w_rc (own_r - partner_c)
+    and its column strip sum_r w_rc (partner_c - own_r); the strips of each
+    (side, row tile), added in slot order, are the closed form's gradient."""
+    sg, sx = (s.astype(np.float64) for s in INPUTS[kind](b, d, seed=7))
+    ct = COTANGENTS["random"].astype(np.float64)
+    scale = -1.0 / (2.0 * b * (b - 1))
+    t = -(-b // 32)
+    pad = lambda s: np.concatenate([s, np.zeros((32 * t - b, d))])
+    scores_ = {0: pad(sg), 1: pad(sx)}
+    strips = {}
+    for pair, r, c, row, col in backward_pieces(t):
+        own = scores_[1 if pair == 2 else 0][32 * r:32 * r + 32]
+        part = scores_[0 if pair == 0 else 1][32 * c:32 * c + 32]
+        raw = ((own * own).sum(1)[:, None] + (part * part).sum(1)[None, :]) - 2.0 * own @ part.T
+        i, j = np.arange(32 * r, 32 * r + 32)[:, None], np.arange(32 * c, 32 * c + 32)[None, :]
+        keep = (i < b) & (j < b) & (i != j) & (raw >= 0)
+        if pair == 1:
+            coef = 2.0 * (ct[1] + ct[4]) * scale
+        elif pair == 0:
+            coef = 4.0 * (ct[0] + ct[3] * (raw >= LOWER)) * scale
+        else:
+            coef = 4.0 * (ct[2] + ct[5] * (raw <= UPPER)) * scale
+        w = np.where(keep, coef * np.exp(-np.maximum(raw, 0) / 2.0), 0.0)
+        strips[row] = w.sum(1)[:, None] * own - w @ part
+        if col is not None:
+            strips[col] = w.sum(0)[:, None] * part - w.T @ own
+    got = [np.concatenate([sum(strips[(side, r, k)] for k in range(2 * t)) for r in range(t)])[:b]
+           for side in range(2)]
+    want = kernel_means_backward_reference(*(torch.tensor(a) for a in (sg, sx, ct)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w.numpy(), rtol=1e-10, atol=1e-15)
+
+
+def test_backward_geometry_mirrors_the_source():
+    """``BACKWARD_MAX_BATCH`` and the tile are the source's kMaxTiles and
+    kTile, a cluster is at most the portable 8 blocks, and the static shared
+    memory of a block (46,344 bytes: a ring of kStages chunks of both
+    strips, the coefficient tile and its transpose, the norms) stays under
+    the 48 KiB a block may declare statically, far under the 232,448 it may
+    use."""
+    src = (Path(cuda_mmd.__file__).parents[1] / "csrc" / cuda_mmd.SOURCE).read_text()
+    const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kTile"] == 32 and const["kChunk"] == 32 and const["kThreads"] == 256
+    assert cuda_mmd.BACKWARD_MAX_BATCH == const["kMaxTiles"] * const["kTile"]
+    assert const["kMaxRanks"] == 8
+    ld = const["kChunk"] + 4   # kLd
+    tile = const["kTile"]
+    shared = 4 * (2 * const["kStages"] * tile * ld + 2 * tile * ld + 2 * tile) + 8
+    assert shared == 46344 <= 48 * 1024 < 232448
+    # on an H100 (132 SMs, 2 blocks an SM): (64, 256)'s 10 pieces take 8
+    # ranks of one chunk, (256, 256)'s 136 pieces fill the card with one
+    assert backward_ranks(10, 256, 264) == (8, 1)
+    assert backward_ranks(136, 256, 264) == (1, 8)
+    assert backward_ranks(10, 1000, 264) == (8, 4)
+    assert backward_ranks(36, 37, 264) == (2, 1)
+    assert backward_ranks(10, 16, 264) == (1, 1)
+
+
+def test_backward_wrapper_raises_above_its_bound_before_loading(monkeypatch):
+    """Above ``BACKWARD_MAX_BATCH`` rows the wrapper raises, naming the
+    bound, before the library is built or loaded; the launch count stays."""
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(cuda_mmd, "_library", no_build)
+    # stand in for the CUDA checks, which a CPU tensor fails first
+    monkeypatch.setattr(cuda_mmd, "_check_scores", lambda who, a, c: tuple(a.shape))
+    big = cuda_mmd.BACKWARD_MAX_BATCH + 1
+    sg = torch.zeros(big, 2)
+    before = kernel_means_backward_cuda.launches
+    with pytest.raises(ValueError, match=f"B = {big} is above the kernel's 4096"):
+        kernel_means_backward_cuda(sg, sg, torch.ones(6))
+    assert kernel_means_backward_cuda.launches == before
+    assert cuda_mmd.backward_scratch_floats(cuda_mmd.BACKWARD_MAX_BATCH, 2) == 4 * 128 ** 2 * 32 * 2

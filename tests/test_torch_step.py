@@ -236,7 +236,8 @@ def test_drawing_losses_run_a_window(loss_type):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import in a fresh
-    interpreter without loading jax, optax, mmdgan_tpu or experiments."""
+    interpreter without loading jax, optax, mmdgan_tpu, experiments or the
+    JAX package's tools."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mmdgan_torch\n"
@@ -244,7 +245,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'optax', 'mmdgan_tpu', 'experiments'))\n"
+        "             ('jax', 'jaxlib', 'optax', 'mmdgan_tpu', 'experiments', 'tools'))\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('mmdgan_torch')]))\n"
     )

@@ -157,6 +157,30 @@ def test_kernel_study_scalar_and_grad_match_jax(b, d):
     assert kernel_study.micro_bench(b, d, 2, True, True, "cpu", repeats=1) > 0
 
 
+# the bounds PERF.md records for the kernel pair (ms; forward, backward):
+# the yardstick reads the same work whatever implements the kernels
+BOUNDS_MS = {(16, 16): (6.19e-7, 1.23e-6, "bytes"), (64, 16): (4.67e-6, 1.24e-5, "operations"),
+             (256, 16): (7.44e-5, 1.99e-4, "operations"),
+             (64, 256): (6.38e-5, 1.88e-4, "operations"),
+             (256, 256): (1.02e-3, 3.01e-3, "operations")}
+
+
+@pytest.mark.parametrize("b,d", sorted(BOUNDS_MS))
+def test_kernel_bounds_hold_their_recorded_values(b, d):
+    """One bound function per kernel (``kernel_study``'s, which
+    ``chip_smoke.py`` imports): their values at the recorded shapes, to the
+    three digits recorded."""
+    fwd, bwd, by = BOUNDS_MS[(b, d)]
+    got_fwd, fwd_by, _ = kernel_study.kernel_means_bound_ms(b, d)
+    got_bwd, bwd_by, _ = kernel_study.kernel_means_backward_bound_ms(b, d)
+    assert got_fwd == pytest.approx(fwd, rel=5e-3) and fwd_by == by
+    assert got_bwd == pytest.approx(bwd, rel=5e-3) and bwd_by == by
+    import chip_smoke
+
+    assert chip_smoke.kernel_means_bound_ms is kernel_study.kernel_means_bound_ms
+    assert chip_smoke.kernel_means_backward_bound_ms is kernel_study.kernel_means_backward_bound_ms
+
+
 def _opts():
     return multi_opt_config([5e-4, 2e-4])
 
