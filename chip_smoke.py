@@ -193,7 +193,10 @@ Phases, each fatal on failure:
      reader in turns (steps/s, a profiled replay per turn, 1 + 2
      kernel-means launches per step); then the cifar CLI in this process
      over the records (``--data-dir``, ``--skip-metrics``), its
-     metrics.jsonl read back with ``utils/events.py``;
+     metrics.jsonl read back with ``utils/events.py``; every CLI run of
+     this script passes ``--use-pallas`` (the kernel pair, as the Python
+     API's default) except one: two K=16 windows over the same records
+     without it, JAX's default path, whose counters must read [0, 0];
    - 15b: the kernels at SimData's, figure1's and 15e's widths: timed in
      phase 3;
    - 15c: ``SimData`` learning on the card (tests/test_integration.py's
@@ -224,7 +227,12 @@ Phases, each fatal on failure:
    - 16d: ``tools/imagenet_prep.py`` ``extract`` on a train tar written
      here, and ``ref-stats`` over three classes of 300 seeded 64x64 rows
      through the fake graph, on the card and on the CPU: every class's
-     mean and covariance agree at rtol 1e-3.
+     mean and covariance agree at rtol 1e-3;
+   - 16e: ``tools/parity_run.py`` twice under deterministic algorithms
+     (16 f32 steps of the full-width CIFAR-10 rep model): the curves
+     bitwise equal, the reference formulas within 1.1e-5 of ``gan_loss``;
+   - 16f: ``tools/sweep_grid.py``, one cell of 32 graphed steps on its
+     blob dataset on the card, beside the checks: finite FID, IS, losses.
 17. the five studies (``mmdgan_torch/tools``), each at a cut size that the
    log names:
    - 17a: ``kernel_study`` (both kernels held and timed at d = 256 in
@@ -1099,7 +1107,7 @@ def cli_runs(tmp: str) -> list:
     x = np.random.RandomState(1).randint(0, 256, (4096, 3, 32, 32), np.uint8)
     np_to_tfrecords(x, None, os.path.join(tmp, "cifar"))
     common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1",
-              "--query-step", "160"]
+              "--query-step", "160", "--use-pallas"]
     # host-fed: 20 graphed windows and 8 single steps
     return [("cifar", common + ["--synthetic-data", "--steps-per-chunk", "328"],
              "synthetic, host-fed"),
@@ -1395,7 +1403,7 @@ def family_cli_runs(tmp: str) -> list:
     cifar with ``--imbalanced-update 1,5 --steps-per-call 16``."""
     x = np.random.RandomState(2).randint(0, 256, (1024, 3, 64, 64), np.uint8)
     np_to_tfrecords(x, None, os.path.join(tmp, "celebA_000"))
-    common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1"]
+    common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1", "--use-pallas"]
     debug = ["--synthetic-data", "--debug-mode", "true", "--debug-step", "32"]
     return ([(module, common + debug, "synthetic, 32 steps")
              for module in ("stl", "celeba", "lsun")]
@@ -1434,7 +1442,8 @@ def run_eval_cli(dev, card: str) -> list:
     the counts of the rep run."""
     from mmdgan_torch.experiments.cifar import main as cifar_main
 
-    common = ["--synthetic-data", "--fresh", "--chunks", "1", "--batch-size", str(BATCH)]
+    common = ["--synthetic-data", "--fresh", "--chunks", "1", "--batch-size", str(BATCH),
+              "--use-pallas"]
     with tempfile.TemporaryDirectory() as out:
         reset_counters()
         start = time.perf_counter()
@@ -1499,6 +1508,23 @@ def _card_vs_cpu(what: str, fn, dev, rtol: float = 1e-3, atol: float = 1e-5) -> 
     return worst
 
 
+def _mesh_sampling(device, real: np.ndarray, folder: str) -> list:
+    """``SNGan.eval_sampling`` of the full-width float32 CIFAR-10 model of
+    seed 0 on ``device`` over MeshCode's sine (1) and feature (2) grids,
+    drawn from one CPU generator, with ``real`` images: the generated
+    images and both nets' scores, the sprites and the embedding written
+    under ``folder``."""
+    model = SNGan(cifar_architecture(), compute_dtype=torch.float32, device=device)
+    params, state, _ = model.init(0)
+    out = []
+    for mode in (1, 2):
+        got = model.eval_sampling(params, state, "cifar", f"mesh_{device.type}", mesh_num=(4, 4),
+                                  mesh_mode=mode, real_batch={"x": real}, do_embedding=True,
+                                  generator=torch.Generator().manual_seed(5), output_dir=folder)
+        out += [got["x_gen"], got["s_x"], got["s_gen"]]
+    return out
+
+
 def check_metrics_on_card(dev) -> None:
     """Phase 11: the metrics' device code on the card against the CPU, TF32
     off, rtol 1e-3: the random-feature classifier at 32x32 (stride-2 SAME
@@ -1506,7 +1532,9 @@ def check_metrics_on_card(dev) -> None:
     draws made once on the CPU, the TF1 resize (32 to 299) and the
     MS-SSIM score's resize (32 up and 512 down to 256); the GraphDef
     executor on the committed narrow fixture (``tests/data``); then the
-    random-feature classifier's images/s on the card."""
+    random-feature classifier's images/s on the card. Beside them,
+    ``SNGan.eval_sampling`` over MeshCode grids (``ops/mesh_code.py``,
+    which the CLI's fixed ``code_x`` never reaches), card vs CPU."""
     from mmdgan_torch.metrics.graphdef import GraphDefModule
     from mmdgan_torch.metrics.inception import RandomFeatureClassifier, resize_bilinear_tf1
     from mmdgan_torch.metrics.msssim import ms_ssim
@@ -1548,6 +1576,18 @@ def check_metrics_on_card(dev) -> None:
         worst = _card_vs_cpu(what, fn, dev)
         log(f"[metrics] {what}: card vs CPU within rtol 1e-3 / atol 1e-5 (the largest "
             f"difference {worst:.3f} of the tolerance)")
+
+    with tempfile.TemporaryDirectory() as folder:
+        real = img(16, 32)
+        worst = _card_vs_cpu("eval_sampling over MeshCode grids",
+                             lambda d: _mesh_sampling(d, real, folder), dev)
+        written = sorted(os.path.relpath(os.path.join(root, f), folder)
+                         for root, _, files in os.walk(folder) for f in files)
+    assert len(written) >= 8, written
+    log(f"[metrics] SNGan.eval_sampling over MeshCode's sine and feature grids (4 x 4, the "
+        f"full-width CIFAR-10 model of seed 0, f32) with real images, scores and the projector "
+        f"embedding: images and scores card vs CPU within rtol 1e-3 / atol 1e-5 (the largest "
+        f"difference {worst:.3f} of the tolerance); {len(written)} files written")
 
     fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
                            "narrow_inception.pb")
@@ -2068,7 +2108,7 @@ def conditional_cli_runs(tmp: str) -> list:
                     rng.randint(0, NUM_CLASS, 4096), os.path.join(tmp, "cifar"))
     common = ["--skip-sampling", "--skip-metrics", "--fresh", "--chunks", "1",
               "--num-class", str(NUM_CLASS), "--sample-same-class", "--query-step", "32",
-              "--steps-per-chunk", "64"]
+              "--steps-per-chunk", "64", "--use-pallas"]
     return [("cifar", common + ["--synthetic-data"], "conditional, synthetic, 64 steps"),
             ("cifar", common + ["--data-dir", tmp],
              "conditional, tfrecord host-fed, same-class batches, 64 steps"),
@@ -2410,7 +2450,7 @@ def mesh_cli_commands(tmp: str) -> list:
     and runs MESH_CLI_STEPS more."""
     common = ["--synthetic-data", "--skip-sampling", "--skip-metrics", "--chunks", "1",
               "--steps-per-chunk", str(MESH_CLI_STEPS), "--query-step", "32",
-              "--out-dir", os.path.join(tmp, "cli")]
+              "--out-dir", os.path.join(tmp, "cli"), "--use-pallas"]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
            "1", "-m", "mmdgan_torch.experiments.cifar"]
     return [cmd + common + ["--fresh"], cmd + common]
@@ -3074,7 +3114,7 @@ def check_real_cifar(dev, card: str, tmp: str) -> list:
     start = time.perf_counter()
     cifar_main(["--data-dir", tmp, "--skip-metrics", "--fresh", "--chunks", "1",
                 "--steps-per-chunk", str(CLI_STEPS), "--query-step", str(SCAN_K),
-                "--out-dir", out])
+                "--out-dir", out, "--use-pallas"])
     seconds = time.perf_counter() - start
     cli = counters()
     windows = cli[0] // SCAN_K
@@ -3086,10 +3126,30 @@ def check_real_cifar(dev, card: str, tmp: str) -> list:
     assert steps == list(range(SCAN_K, CLI_STEPS + 1, SCAN_K)), steps
     assert np.isfinite(recs["loss_dis"][rows]).all() and np.isfinite(recs["loss_gen"][rows]).all()
     log(f"[data] python -m mmdgan_torch.experiments.cifar --data-dir (the converted records, "
-        f"native reader): {CLI_STEPS} steps and the sprite in {seconds:.1f} s; metrics.jsonl "
-        f"read back by utils/events.py: loss rows at steps {steps}, finite; last loss_gen "
-        f"{recs['loss_gen'][rows][-1]:.5f}; kernel-means counters {cli[0]}/{cli[1]} in "
-        f"{windows} eager or captured windows")
+        f"native reader) --use-pallas: {CLI_STEPS} steps and the sprite in {seconds:.1f} s; "
+        f"metrics.jsonl read back by utils/events.py: loss rows at steps {steps}, finite; last "
+        f"loss_gen {recs['loss_gen'][rows][-1]:.5f}; kernel-means counters {cli[0]}/{cli[1]} "
+        f"in {windows} eager or captured windows")
+
+    # without --use-pallas the CLI takes JAX's default path, the plain kernel means
+    plain_out = os.path.join(tmp, "cli_plain")
+    reset_counters()
+    start = time.perf_counter()
+    cifar_main(["--data-dir", tmp, "--skip-metrics", "--skip-sampling", "--fresh", "--chunks",
+                "1", "--steps-per-chunk", str(2 * SCAN_K), "--query-step", str(SCAN_K),
+                "--out-dir", plain_out])
+    seconds = time.perf_counter() - start
+    plain = counters()
+    assert plain == [0, 0], f"CLI without --use-pallas: kernel-means counters {plain}"
+    recs = read_metrics_jsonl(os.path.join(plain_out, "cifar_log", run))
+    rows = np.isfinite(recs["loss_gen"])
+    steps = recs["step"][rows].astype(int).tolist()
+    assert steps == [SCAN_K, 2 * SCAN_K], steps
+    assert np.isfinite(recs["loss_dis"][rows]).all()
+    log(f"[data] the same CLI without --use-pallas (JAX's default path, the plain kernel "
+        f"means): {2 * SCAN_K} steps in {seconds:.1f} s; loss rows at steps {steps}, finite; "
+        f"last loss_gen {recs['loss_gen'][rows][-1]:.5f}; kernel-means counters "
+        f"{plain[0]}/{plain[1]}")
     return [a + b for a, b in zip(launches, cli)]
 
 
@@ -3281,6 +3341,8 @@ def run_real_data_and_tools(dev, card: str) -> list:
 SWEEP_STEPS = 192                   # 16b: timed steps per point (the tool's default 384)
 SWEEP_REPEAT = (8, 16, 32)          # 16b: K points timed again after the sweep, for the noise
 QUALITY_STEPS = 32                  # 16c: the quality_smoke run that writes the checkpoint
+PARITY_STEPS = 16                   # 16e: parity_run's steps, twice
+SWEEP_GRID_STEPS = 32               # 16f: sweep_grid's one cell
 REHEARSAL_BATCHES = 781             # 16c: the reference protocol, 781 x 64 per side
 IMAGENET_CLASSES, IMAGENET_ROWS, IMAGENET_SIDE = 3, 300, 64   # 16d: 300 = 4 x 64 + 44
 STATS_TOL = dict(rtol=1e-3, atol=1e-5)
@@ -3382,6 +3444,61 @@ def start_quality_smoke(tmp: str):
     def finish() -> None:
         text = _wait_all([proc], timeout=600)[0]
         assert "RESUMABLE" in text, text[-3000:]
+
+    return finish
+
+
+def check_parity_run(dev, card: str) -> None:
+    """16e: ``tools/parity_run.py`` on the card, under deterministic
+    algorithms, twice: PARITY_STEPS float32 steps of the full-width CIFAR-10
+    rep model from seed 0; the two loss curves bitwise equal (the tool's
+    ``--compare`` says MATCH), and the loss recomputed from D's scores by the
+    tool's numpy copy of the reference formulas within 1.1e-5 of
+    ``gan_loss`` on the card (the CPU test's atol 1e-6 and rtol 1e-5 of a
+    loss below 1)."""
+    from mmdgan_torch.tools import parity_run
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            paths = [os.path.join(tmp, f"run_{i}.json") for i in range(2)]
+            runs = [parity_run.run(PARITY_STEPS, 0, path, 4, str(dev), "float32")
+                    for path in paths]
+            rc = parity_run.compare(*paths)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    curves = [[c["loss_gen"] for c in r["curve"]] for r in runs]
+    assert rc == 0 and curves[0] == curves[1], curves
+    errs = [r["max_reference_formula_error"] for r in runs]
+    assert max(errs) < 1.1e-5 and np.isfinite(curves[0]).all(), errs
+    log(f"[parity_run] {PARITY_STEPS} f32 steps of the full-width CIFAR-10 rep model twice "
+        f"under deterministic algorithms: loss curves bitwise equal (final loss_gen "
+        f"{curves[0][-1]:.6f}); reference formulas against gan_loss on the card, largest "
+        f"difference {max(errs):.2e}; card: {card}")
+
+
+def start_sweep_grid(tmp: str):
+    """16f, which times nothing: ``tools/sweep_grid.py`` in a process, one
+    cell (rep, k 64, both lr 2e-4) of SWEEP_GRID_STEPS graphed bf16 steps on
+    its blob dataset resident on the card, scored with FID and IS over two
+    batches. Returns the function that waits for it and reads the cell."""
+    out = os.path.join(tmp, "sweep_grid")
+    proc = ("16f sweep_grid", *_mesh_process(
+        [sys.executable, "-m", "mmdgan_torch.tools.sweep_grid", "--losses", "rep", "--k-grid",
+         "64", "--lr-grid", "2e-4", "--steps", str(SWEEP_GRID_STEPS), "--eval-batches", "2",
+         "--device-dataset", "512", "--out", out], os.path.join(tmp, "sweep_grid.log")))
+
+    def finish() -> None:
+        _wait_all([proc], timeout=300)
+        with open(os.path.join(out, "cells.jsonl")) as f:
+            cells = [json.loads(line) for line in f]
+        assert len(cells) == 1 and cells[0]["steps"] == SWEEP_GRID_STEPS, cells
+        cell = cells[0]
+        assert all(np.isfinite(cell[k]) for k in ("fid", "is", "loss_gen", "loss_dis")), cell
+        assert all(os.path.getsize(os.path.join(out, f)) > 0 for f in ("grid.md", "grid.csv"))
+        log(f"[sweep_grid] one cell (rep, k 64, lr 2e-4 / 2e-4), {SWEEP_GRID_STEPS} graphed "
+            f"bf16 steps on the card: FID {cell['fid']}, IS {cell['is']}, loss_gen "
+            f"{cell['loss_gen']}, {cell['seconds']} s; grid.md and grid.csv written")
 
     return finish
 
@@ -3801,6 +3918,7 @@ def main() -> int:
             beside("14 gloo and profile_step",
                    lambda d: start_sharding_smokes(card, os.path.join(tmp, "14")))
             beside("16 quality_smoke", lambda d: start_quality_smoke(tmp))
+            beside("16 sweep_grid", start_sweep_grid)
             phase("4 reference",
                   lambda: [check_against_cpu(dev, loss) for loss in CPU_CHECK_LOSSES])
             phase("6 determinism", lambda: check_determinism(dev))
@@ -3814,6 +3932,7 @@ def main() -> int:
             phase("12 same-class checks", lambda: check_same_class_data(dev, same_class_data()))
             phase("12 card vs CPU", lambda: check_catalogue_on_card(dev))
             phase("16 imagenet prep", lambda: check_imagenet_prep(dev, card, tmp, pb))
+            phase("16 parity_run", lambda: check_parity_run(dev, card))
             phase("17 tc gate on the card", lambda: check_tc_gate_on_card(dev))
         finally:
             errors = []

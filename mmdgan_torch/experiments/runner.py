@@ -18,11 +18,14 @@ scores come from random features, comparable only within the port.
 ``--num-class C`` (C >= 2) reads labels with the images (synthetic labels
 with ``--synthetic-data``) and trains the class-conditional model the
 dataset's script builds; ``--sample-same-class`` takes each batch from
-one class and generates that class. One flag raises and names its
-ROADMAP item: ``--use-pallas`` (the TPU kernel; the port always runs its
-own CUDA kernel-means kernel, B1). ``--compilation-cache DIR`` moves the
-kernels' build directory to DIR. ``--loss`` takes every name of the loss
-dispatcher.
+one class and generates that class. ``--use-pallas`` routes the
+repulsive family's kernel means (rep, rmb and their penalised and scaled
+forms, ``GANLoss.__post_init__``) through the hand-written CUDA kernel pair
+(``ops/cuda_mmd.py``; their plain versions on CPU tensors), where JAX's
+routes them through its Pallas kernel; without it the plain kernel means
+run, JAX's default path. The Python API's ``SNGan`` keeps the pair on by
+default. ``--compilation-cache DIR`` moves the kernels' build directory to
+DIR. ``--loss`` takes every name of the loss dispatcher.
 
 Under ``torchrun`` (``WORLD_SIZE`` in the environment) the host-fed path
 trains data-parallel, as the JAX runner's ``DataParallel()`` does
@@ -111,7 +114,9 @@ def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--host-decode", action="store_true",
                    help="scale images to f32 on the host instead of the device")
     p.add_argument("--use-pallas", action="store_true",
-                   help="the TPU's fused Pallas MMD kernel (not ported: ROADMAP B1)")
+                   help="the repulsive losses' kernel means through the hand-written CUDA "
+                        "kernel pair (kernel_means_fwd/_bwd; plain versions on the CPU); "
+                        "without it the plain kernel means, JAX's default path")
     p.add_argument("--summary-histograms", action="store_true",
                    help="fixed-bin hist/* summaries of distances and scores from the step")
     p.add_argument("--param-hist-step", type=int, default=0,
@@ -129,14 +134,7 @@ def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
 
 
 def refuse_unported(args) -> None:
-    """Raise for a flag whose module the port does not have yet."""
-    unported = [
-        (args.use_pallas, "--use-pallas selects the TPU's Pallas kernel; the port runs "
-                          "its CUDA kernel-means kernel (ROADMAP B1)"),
-    ]
-    for refused, why in unported:
-        if refused:
-            raise NotImplementedError(why)
+    """Raise for a combination of flags that the runner does not take."""
     if args.sampling != "uniform" and not (args.device_dataset and not args.synthetic_data):
         raise ValueError("--sampling shuffled_epochs only applies to the device-resident "
                          "dataset: pass --device-dataset (without --synthetic-data)")
@@ -206,6 +204,7 @@ def run_experiment(args, architecture: dict, filename, num_instance: int,
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     model = SNGan(architecture, num_class=args.num_class, loss_type=loss_type,
                   rep_weights=rep_weights, compute_dtype=compute_dtype,
+                  use_fused_kernel=args.use_pallas,
                   summary_histograms=args.summary_histograms, device=device)
     model.sample_same_class = args.sample_same_class
     num_labels = 0 if args.num_class < 2 else 1

@@ -46,6 +46,7 @@ from mmdgan_torch.train.step import (
 )
 from mmdgan_torch.train.trainer import Agent
 from mmdgan_torch.utils import checkpoint
+from test_torch_mmd import VAL
 from test_torch_step import B, IMG, LOSS_TOL, NARROW, STATE_TOL, _bridged, _replayed_z
 
 torch.set_num_threads(1)
@@ -455,12 +456,42 @@ def test_cifar_cli_other_loss_with_histograms(tmp_path):
                  id="flags2-A16"),
 ])
 def test_cifar_cli_refuses_unported_flags(tmp_path, monkeypatch, capsys, flags, item):
-    """``--use-pallas`` refuses, naming ROADMAP B1. ``--compilation-cache``
+    """No flag of the JAX CLI refuses. ``--use-pallas`` (B1) routes the
+    repulsive loss through the kernel pair, as JAX's routes it through its
+    Pallas kernel (``experiments/runner.py:186``): two synthetic float32
+    steps with the flag build ``fused_rep`` on, without it off, and the
+    losses logged at each step agree at ``VAL``, the tolerance at which
+    ``test_torch_mmd.py::test_gan_loss_matches_jax`` holds the kernel
+    pair's plain version against the plain means. ``--compilation-cache``
     (A16) is ported: a two-step synthetic run takes it and prints the
     cache's directory, as the JAX CLI does (``experiments/runner.py:141-145``)."""
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            cifar_main(["--device", "cpu", "--out-dir", str(tmp_path), *flags])
+        from mmdgan_torch.models import sngan
+
+        built = []
+
+        class Recorded(sngan.SNGan):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                built.append(self)
+
+        monkeypatch.setattr(sngan, "SNGan", Recorded)
+        logged = []
+        for extra in ([], flags[-1:]):
+            out = tmp_path / str(len(extra))
+            cifar_main(["--device", "cpu", "--out-dir", str(out), *flags[:-1], *extra,
+                        "--synthetic-data", "--debug-mode", "true", "--debug-step", "2",
+                        "--steps-per-call", "1", "--query-step", "1",
+                        "--compute-dtype", "float32", "--chunks", "1", "--batch-size", "4"])
+            run = "sngan_rep_5e-04_2e-04_k1.68_0.0_-1.0"
+            recs = [json.loads(ln) for ln in open(out / "cifar_log" / run / "metrics.jsonl")]
+            logged.append({r["step"]: (r["loss_gen"], r["loss_dis"])
+                           for r in recs if "loss_gen" in r})
+        assert [m.loss_hp.fused_rep for m in built] == [False, True]
+        assert sorted(logged[0]) == sorted(logged[1]) == [1, 2]
+        for step, (loss_gen, loss_dis) in logged[1].items():
+            np.testing.assert_allclose(loss_gen, logged[0][step][0], **VAL, err_msg=str(step))
+            np.testing.assert_allclose(loss_dis, logged[0][step][1], **VAL, err_msg=str(step))
         return
     from mmdgan_torch.ops import _build
 
