@@ -89,7 +89,11 @@ def build_arg_parser(dataset: str) -> argparse.ArgumentParser:
                    help="false: full run; true: short debug run; none: print model only")
     p.add_argument("--debug-step", type=int, default=400)
     p.add_argument("--query-step", type=int, default=1000)
-    p.add_argument("--trace", action="store_true", help="profile last 5 steps")
+    p.add_argument("--trace", action="store_true",
+                   help="profile the end of each chunk's training (the last 5 single steps, "
+                        "the last 2 K-step windows, or every window of fewer than 3) into the "
+                        "summary folder: trace.json (kernels and the port's spans) and "
+                        "spans.json (the spans' records and counters)")
     p.add_argument("--no-save", action="store_true")
     p.add_argument("--load-ckpt", action="store_true", default=True)
     p.add_argument("--fresh", dest="load_ckpt", action="store_false")

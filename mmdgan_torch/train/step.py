@@ -80,6 +80,7 @@ from mmdgan_torch.parallel.collectives import (
 )
 from mmdgan_torch.train.optim import Optimizer
 from mmdgan_torch.train.state import TrainState, loss_state_leaves, tree_leaves
+from mmdgan_torch.utils import spans
 
 
 def init_train_state(model: SNGan, seed: int, opt_dis: Optimizer, opt_gen: Optimizer,
@@ -434,11 +435,15 @@ class StepGraphs:
     numbers and advances the generator as an eager window would. A capture
     that fails raises. When the bound buffers change (another TrainState,
     another dataset tensor, another generator), every graph is dropped and
-    the next calls warm up and capture anew.
+    the next calls warm up and capture anew, into a fresh memory pool: the
+    caching allocator keeps a pool whose graphs are gone until its blocks
+    are freed, and refuses to capture into it again.
 
     A graph's outputs are static: the next replay overwrites them, so the
     caller clones what it returns. ``eager``, ``captures`` and ``replays``
-    count the three kinds of call."""
+    count the three kinds of call. Traced (``utils/spans.py``), the host's
+    part of each is the span ``graphs.warm_up``, ``graphs.capture`` or
+    ``graphs.replay``, and ``graphs.drop`` counts the bindings dropped."""
 
     def __init__(self):
         self._graphs: Dict = {}
@@ -452,12 +457,16 @@ class StepGraphs:
             body: Callable):
         binding = (tuple(t.data_ptr() for t in bound), tuple(generators))
         if binding != self._binding:
+            if self._graphs or self._warm:
+                spans.count("graphs.drop")
+                self._pool = None
             self._graphs.clear()
             self._warm.clear()
             self._binding = binding
         if key in self._graphs:
             graph, out = self._graphs[key]
-            graph.replay()
+            with spans.span("graphs.replay"):
+                graph.replay()
             self.replays += 1
             return out
         if key not in self._warm:
@@ -469,11 +478,13 @@ class StepGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         # thread_local: a data thread may pin host memory while this captures
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+        with spans.span("graphs.capture"), torch.cuda.graph(
+                graph, pool=self._pool, capture_error_mode="thread_local"):
             out = body()
         self._graphs[key] = (graph, out)
         self.captures += 1
-        graph.replay()
+        with spans.span("graphs.replay"):
+            graph.replay()
         self.replays += 1
         return out
 
@@ -481,12 +492,13 @@ class StepGraphs:
         if self._stream is None:
             self._stream = torch.cuda.Stream()
         current = torch.cuda.current_stream()
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            out = body()
-        current.wait_stream(self._stream)
-        for t in out[0]:
-            t.record_stream(current)
+        with spans.span("graphs.warm_up"):
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                out = body()
+            current.wait_stream(self._stream)
+            for t in out[0]:
+                t.record_stream(current)
         self.eager += 1
         return out
 

@@ -19,8 +19,15 @@ device-resident training, checkpoints, guards, summaries, profiling.
   computed on the device). ``train_device_data`` uploads the dataset once
   and runs graphed windows that take their batches on the device, the
   accumulated step among them (``micro_batches``).
-- ``do_trace``: ``torch.profiler`` over the last 5 host-fed steps, a
-  chrome trace in the summary folder.
+- ``do_trace``: ``torch.profiler`` over the end of every loop (the last 5
+  single steps, the last 2 K-step windows, or every window of a call of
+  fewer than 3), written to the summary folder: ``trace.json``, a chrome
+  trace that holds the port's spans beside the kernels, and ``spans.json``,
+  the spans' records and counters (``utils/spans.py``).
+- Spans (``utils/spans.py``, recorded while any profiler runs):
+  ``agent.call`` around each training call, ``agent.upload`` (the
+  device-data copy), ``agent.feed_wait`` (each wait on the prefetcher),
+  ``agent.guard`` (``_check``'s sync) and ``agent.report`` (summaries).
 - ``debug_mode=None`` prints the model description and returns without
   running (:1195-1204); ``True`` caps a run at ``debug_step``.
 
@@ -41,6 +48,7 @@ metrics, so every rank decides alike.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 import warnings
@@ -60,7 +68,7 @@ from mmdgan_torch.train.step import (
     imbalanced_scan,
     same_class_tables,
 )
-from mmdgan_torch.utils import checkpoint
+from mmdgan_torch.utils import checkpoint, spans
 from mmdgan_torch.utils.folders import prepare_folder
 from mmdgan_torch.utils.summary import MetricWriter
 
@@ -126,6 +134,42 @@ def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     out = dict(zip(keys, torch.stack([metrics[k].float() for k in keys]).cpu().numpy()))
     out.update({k: v.cpu().numpy() for k, v in metrics.items() if k.startswith("hist/")})
     return out
+
+
+class _Trace:
+    """``do_trace``'s profiler over the end of one loop: ``start(due)``
+    starts it the first time ``due`` holds (with ``do_trace`` only, and
+    forgets the spans recorded before); leaving the block stops it and
+    writes ``trace.json`` and ``spans.json`` into ``folder``."""
+
+    def __init__(self, enabled: bool, device: torch.device, folder: str):
+        self.enabled, self.device, self.folder = enabled, device, folder
+        self.profiler = None
+
+    def start(self, due: bool = True) -> None:
+        if self.enabled and due and self.profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            spans.clear()
+            self.profiler = profile(activities=activities)
+            self.profiler.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.profiler is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.profiler.stop()
+            self.profiler.export_chrome_trace(os.path.join(self.folder, "trace.json"))
+            with open(os.path.join(self.folder, "spans.json"), "w") as f:
+                json.dump({"records": [r._asdict() for r in spans.records()],
+                           "counters": spans.counters()}, f)
+        return False
 
 
 class Agent:
@@ -260,32 +304,34 @@ class Agent:
     def _check(self, ts: TrainState, step: int, metrics: Dict, take_last: bool):
         """Sync and read the metrics; raise on NaN, return None after a
         loss above the bound (the run must stop), else (scalars, hists)."""
-        vals, hists = split_host_metrics(_to_host(metrics), take_last)
-        loss_vals = [vals["loss_gen"], vals["loss_dis"]]
-        if any(np.isnan(loss_vals)):
-            self._abnormal_save(ts, step, vals)
-            raise FloatingPointError(f"Model diverged with loss = {loss_vals} at step {step}")
-        if any(np.greater(loss_vals, LOSS_DIVERGENCE_BOUND)):
-            self._abnormal_save(ts, step, vals)
-            warnings.warn("Training stopped early as loss diverged.")
-            return None
-        return vals, hists
+        with spans.span("agent.guard"):
+            vals, hists = split_host_metrics(_to_host(metrics), take_last)
+            loss_vals = [vals["loss_gen"], vals["loss_dis"]]
+            if any(np.isnan(loss_vals)):
+                self._abnormal_save(ts, step, vals)
+                raise FloatingPointError(f"Model diverged with loss = {loss_vals} at step {step}")
+            if any(np.greater(loss_vals, LOSS_DIVERGENCE_BOUND)):
+                self._abnormal_save(ts, step, vals)
+                warnings.warn("Training stopped early as loss diverged.")
+                return None
+            return vals, hists
 
     def _report(self, ts, step, vals, hists, steps_done, start, step_per_epoch, force_print):
-        hist_ts = None
-        if self.param_hist_step > 0 and (self._last_param_hist is None or
-                                         step - self._last_param_hist >= self.param_hist_step):
-            # every rank: gathering a sharded state is a collective
-            self._last_param_hist = step
-            hist_ts = ts if ts.layout is None else ts.layout.gathered(ts)
-        if not self.is_main:
-            return
-        self._write_query(step, vals, hists, hist_ts)
-        if self.print_loss or force_print:
-            epoch = (step - 1) // max(step_per_epoch, 1)
-            speed = steps_done / (time.time() - start)
-            print(f"global step {step} epoch {epoch}: loss_gen {vals['loss_gen']:.4f} "
-                  f"loss_dis {vals['loss_dis']:.4f} ({speed:.2f} steps/s)", flush=True)
+        with spans.span("agent.report"):
+            hist_ts = None
+            if self.param_hist_step > 0 and (self._last_param_hist is None or step -
+                                             self._last_param_hist >= self.param_hist_step):
+                # every rank: gathering a sharded state is a collective
+                self._last_param_hist = step
+                hist_ts = ts if ts.layout is None else ts.layout.gathered(ts)
+            if not self.is_main:
+                return
+            self._write_query(step, vals, hists, hist_ts)
+            if self.print_loss or force_print:
+                epoch = (step - 1) // max(step_per_epoch, 1)
+                speed = steps_done / (time.time() - start)
+                print(f"global step {step} epoch {epoch}: loss_gen {vals['loss_gen']:.4f} "
+                      f"loss_dis {vals['loss_dis']:.4f} ({speed:.2f} steps/s)", flush=True)
 
     def _after_window(self, ts, metrics, start_step, call, num_calls, k, start,
                       step_per_epoch, force_print) -> bool:
@@ -320,6 +366,7 @@ class Agent:
         return ts
 
     # ------------------------------------------------------------------
+    @spans.spanned("agent.call")
     def train(
         self,
         train_step: Callable,
@@ -362,15 +409,15 @@ class Agent:
         host_rng = np.random.RandomState(start_step + 12345)
         mmd_average = 0.0
         start = time.time()
-        profiler = None
         device_it = prefetch(data_iter, ts.step.device, size=2)
-        with _PreemptionGuard(self.handle_preemption) as guard:
+        with _Trace(self.do_trace, ts.step.device, self.summary_folder) as trace, \
+                _PreemptionGuard(self.handle_preemption) as guard:
             for local_step in range(max_step):
                 global_step = start_step + local_step
-                batch = next(device_it)
+                with spans.span("agent.feed_wait"):
+                    batch = next(device_it)
                 do_dis, do_gen = self._update_flags(global_step, mmd_average, host_rng)
-                if self.do_trace and profiler is None and local_step == max_step - 5:
-                    profiler = self._start_trace(ts.step.device)
+                trace.start(local_step >= max_step - 5)
                 ts, metrics = train_step(ts, batch, do_dis, do_gen)
                 s = global_step + 1
                 if (s % self.nan_check_step == 0 or s % self.query_step == 0
@@ -385,25 +432,7 @@ class Agent:
                                      step_per_epoch, force_print)
                 if guard.requested:
                     break
-        if profiler is not None:
-            self._stop_trace(profiler)
         return self._finish(ts, max_step, start, summary_image_fn)
-
-    def _start_trace(self, device: torch.device):
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.start()
-        return profiler
-
-    def _stop_trace(self, profiler) -> None:
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        profiler.stop()
-        profiler.export_chrome_trace(os.path.join(self.summary_folder, "trace.json"))
 
     def _train_multi(self, train_step, ts, data_iter, max_step, step_per_epoch,
                      summary_image_fn, k, force_print, dp=None) -> TrainState:
@@ -443,30 +472,38 @@ class Agent:
                        for key in host[0]}
 
         device_it = prefetch(stacked_host_batches(), dev, size=2)
-        with _PreemptionGuard(self.handle_preemption) as guard:
-            for call in range(num_calls):
-                if iu is None:
-                    ts, metrics = multi(ts, next(device_it))
-                else:
-                    ts, metrics = multi(ts, next(device_it), sched_rng, mmd_avg)
-                if not self._after_window(ts, metrics, start_step, call, num_calls, k, start,
-                                          step_per_epoch, force_print):
-                    return ts
-                if guard.requested:
-                    break
-        # the steps below one window run singly, on the rows of the next
-        # stacked batch (the prefetch thread owns the host iterator)
-        if remainder and not guard.requested:
-            batches = next(device_it)
-            host_rng = np.random.RandomState(start_step + 12345)
-            average = float(mmd_avg)
-            for i in range(remainder):
-                do_dis, do_gen = self._update_flags(start_step + num_calls * k + i, average,
-                                                    host_rng)
-                ts, metrics = train_step(ts, {key: None if v is None else v[i]
-                                              for key, v in batches.items()}, do_dis, do_gen)
+        with _Trace(self.do_trace, dev, self.summary_folder) as trace:
+            with _PreemptionGuard(self.handle_preemption) as guard:
+                for call in range(num_calls):
+                    trace.start(call >= num_calls - 2)
+                    with spans.span("agent.feed_wait"):
+                        batches = next(device_it)
+                    if iu is None:
+                        ts, metrics = multi(ts, batches)
+                    else:
+                        ts, metrics = multi(ts, batches, sched_rng, mmd_avg)
+                    if not self._after_window(ts, metrics, start_step, call, num_calls, k,
+                                              start, step_per_epoch, force_print):
+                        return ts
+                    if guard.requested:
+                        break
+            # the steps below one window run singly, on the rows of the next
+            # stacked batch (the prefetch thread owns the host iterator)
+            if remainder and not guard.requested:
+                trace.start()
+                with spans.span("agent.feed_wait"):
+                    batches = next(device_it)
+                host_rng = np.random.RandomState(start_step + 12345)
+                average = float(mmd_avg)
+                for i in range(remainder):
+                    do_dis, do_gen = self._update_flags(start_step + num_calls * k + i,
+                                                        average, host_rng)
+                    ts, metrics = train_step(ts, {key: None if v is None else v[i]
+                                                  for key, v in batches.items()},
+                                             do_dis, do_gen)
         return self._finish(ts, max_step, start, summary_image_fn)
 
+    @spans.spanned("agent.call")
     def train_device_data(
         self,
         model,
@@ -557,8 +594,10 @@ class Agent:
         ts = self._use_mesh(dp, ts)
         if self.load_ckpt:
             ts = self.restore(ts)
-        data_x = torch.tensor(np.asarray(data["x"]), device=dev)   # a copy: permuted in place
-        data_y = None if host_y is None else torch.tensor(host_y.astype(np.int64), device=dev)
+        with spans.span("agent.upload"):
+            data_x = torch.tensor(np.asarray(data["x"]), device=dev)   # a copy: permuted in place
+            data_y = (None if host_y is None
+                      else torch.tensor(host_y.astype(np.int64), device=dev))
         rng = torch.Generator(dev).manual_seed(seed + 54321)
         start_step = int(ts.step)
         start = time.time()
@@ -585,20 +624,24 @@ class Agent:
             rows = None if sched is None else sched[off:off + n]
             return fn_(ts, data_x, data_y, rng, schedule=rows)
 
-        with _PreemptionGuard(self.handle_preemption) as guard:
-            for call in range(num_calls):
+        with _Trace(self.do_trace, dev, self.summary_folder) as trace:
+            with _PreemptionGuard(self.handle_preemption) as guard:
+                for call in range(num_calls):
+                    trace.start(call >= num_calls - 2)
+                    if shuffled and not scheduled:
+                        permuter.advance((start_step + call * k) // n_batches, [data_x, data_y])
+                    ts, metrics = invoke(fn, start_step + call * k, k)
+                    if not self._after_window(ts, metrics, start_step, call, num_calls, k,
+                                              start, step_per_epoch, force_print):
+                        return ts
+                    if guard.requested:
+                        break
+            if remainder and not guard.requested:
+                trace.start()
                 if shuffled and not scheduled:
-                    permuter.advance((start_step + call * k) // n_batches, [data_x, data_y])
-                ts, metrics = invoke(fn, start_step + call * k, k)
-                if not self._after_window(ts, metrics, start_step, call, num_calls, k, start,
-                                          step_per_epoch, force_print):
-                    return ts
-                if guard.requested:
-                    break
-        if remainder and not guard.requested:
-            if shuffled and not scheduled:
-                permuter.advance((start_step + num_calls * k) // n_batches, [data_x, data_y])
-            ts, _ = invoke(get_fn(remainder), start_step + num_calls * k, remainder)
+                    permuter.advance((start_step + num_calls * k) // n_batches,
+                                     [data_x, data_y])
+                ts, _ = invoke(get_fn(remainder), start_step + num_calls * k, remainder)
         return self._finish(ts, int(ts.step) - start_step, start, summary_image_fn)
 
     def _abnormal_save(self, ts, step, vals):

@@ -27,6 +27,7 @@ import torch
 
 from mmdgan_torch import DeviceLike, resolve_device
 from mmdgan_torch.train.state import tree_leaves, tree_map
+from mmdgan_torch.utils import spans
 
 
 class _Generate(torch.nn.Module):
@@ -85,13 +86,16 @@ def export_generator(model, params: Dict, net_state: Dict, batch_size: int, out_
 def load_exported(path: str, device: DeviceLike = None) -> Callable:
     """The artifact at ``path`` as a callable ``fn(z)`` (``fn(z, y)`` for
     a conditional export) on ``device`` (``cuda`` unless asked
-    otherwise), whatever device it was exported on. Needs no model code."""
+    otherwise), whatever device it was exported on. Needs no model code.
+    Traced (``utils/spans.py``), each call is the span ``serve.call``: the
+    host's dispatch of one served batch."""
     from torch.export.passes import move_to_device_pass
 
     dev = resolve_device(device)
     program = move_to_device_pass(torch.export.load(path), dev)
     module = program.module()
 
+    @spans.spanned("serve.call")
     def fn(z, y=None):
         z = torch.as_tensor(z, dtype=torch.float32, device=dev)
         with torch.no_grad():

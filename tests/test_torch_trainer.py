@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mmdgan_tpu.models.sngan import SNGan as JaxSNGan
 from mmdgan_tpu.train.optim import multi_opt_config as jax_multi_opt_config
@@ -45,7 +46,7 @@ from mmdgan_torch.train.step import (
     init_train_state,
 )
 from mmdgan_torch.train.trainer import Agent
-from mmdgan_torch.utils import checkpoint
+from mmdgan_torch.utils import checkpoint, spans
 from test_torch_mmd import VAL
 from test_torch_step import B, IMG, LOSS_TOL, NARROW, STATE_TOL, _bridged, _replayed_z
 
@@ -293,6 +294,65 @@ def test_train_device_data(tmp_path, sampling):
     assert int(ts.step) == 30
     assert checkpoint.list_ckpt_steps(a.ckpt_folder) == [27, 30]
     np.testing.assert_array_equal(data["x"], images(256)["x"])   # the host copy untouched
+
+
+def _spans_call(a, path, model, opt_d, opt_g, ts, step, max_step):
+    """One Agent call of K = 4 windows: host-fed (``_train_multi``) or
+    over device data."""
+    if path == "host":
+        return a.train(step, ts, synthetic_image_batches(16, 8, 8, 1), max_step=max_step,
+                       step_per_epoch=100, steps_per_call=4)
+    return a.train_device_data(model, opt_d, opt_g, ts, images(256), max_step=max_step,
+                               step_per_epoch=16, batch_size=16, steps_per_call=4)
+
+
+@pytest.mark.parametrize("path", ["host", "device"])
+def test_agent_call_spans_under_a_profiler(tmp_path, path):
+    """Two K = 4 windows and two remainder steps: untraced nothing is
+    recorded; under a profiler the call is the root, and its feed waits
+    (host-fed), its upload (device data), its guard and report are its
+    children."""
+    model, opt_d, opt_g, ts, step = setup()
+    spans.clear()
+    a = agent(tmp_path, "spans", sub=path, query_step=8, do_save=False, print_loss=False)
+    ts = _spans_call(a, path, model, opt_d, opt_g, ts, step, 10)
+    assert spans.records() == [] and not spans.tracing()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ts = _spans_call(a, path, model, opt_d, opt_g, ts, step, 10)
+    assert int(ts.step) == 20
+    recs = spans.records()
+    spans.clear()
+    call = [r for r in recs if r.name == "agent.call"]
+    assert len(call) == 1 and call[0].parent is None
+    assert all(r.parent == r.root == call[0].id for r in recs if r is not call[0])
+    counts = {n: sum(r.name == n for r in recs) for n in {r.name for r in recs}}
+    # the guard and report come at the last window; the remainder takes one feed
+    expected = {"agent.call": 1, "agent.guard": 1, "agent.report": 1}
+    expected.update({"agent.feed_wait": 3} if path == "host" else {"agent.upload": 1})
+    assert counts == expected
+
+
+@pytest.mark.parametrize("path,max_step,windows", [("host", 16, 2), ("device", 8, 2)])
+def test_do_trace_profiles_the_last_windows(tmp_path, path, max_step, windows):
+    """``do_trace`` profiles the last 2 windows, or every window of a call
+    of fewer than 3, into trace.json (the spans among its events) and
+    spans.json."""
+    model, opt_d, opt_g, ts, step = setup()
+    spans.clear()
+    a = agent(tmp_path, "trace", sub=path, query_step=4, do_save=False, print_loss=False,
+              do_trace=True)
+    ts = _spans_call(a, path, model, opt_d, opt_g, ts, step, max_step)
+    assert int(ts.step) == max_step and not spans.tracing()
+    with open(os.path.join(a.summary_folder, "spans.json")) as f:
+        saved = json.load(f)
+    with open(os.path.join(a.summary_folder, "trace.json")) as f:
+        events = {e.get("name") for e in json.load(f)["traceEvents"]}
+    spans.clear()
+    names = [r["name"] for r in saved["records"]]
+    assert names.count("agent.guard") == windows and names.count("agent.report") == windows
+    assert names.count("agent.feed_wait") == (windows if path == "host" else 0)
+    assert "agent.call" not in names      # the call began before the profiler
+    assert set(names) <= events and saved["counters"] == {}
 
 
 def test_train_device_data_shuffled_resume_bitwise(tmp_path):
