@@ -31,6 +31,22 @@ the reference does (``:494-501``). Mixed precision as in the JAX package
 conv and matmul, gathers of float32 parameters promote locally, and op
 outputs return to ``compute_dtype``; parameters, SN vectors and BN
 statistics stay float32.
+
+Shapes are NCHW everywhere; memory is NHWC on the card. Where
+``nhwc_route`` holds (a CUDA tensor and a 16-bit compute dtype, the case in
+which cuDNN runs its NHWC tensor-core engines and would otherwise
+transpose around each call) a conv op casts its input and kernels to
+``torch.channels_last`` in the same copy as the dtype cast, so activations
+stay channels_last from layer to layer and elementwise ops, BN and pooling
+keep the layout. PyTorch's reductions over a channels_last map's outer
+dims ran 2-6x slower than over NCHW on the H100, so on the route the
+per-channel sums run as GEMVs (``_ChannelSum``: the bias's gradient,
+``per_channel``, and BN's statistics under a mesh, ``batch_moments``), and
+BN otherwise runs PyTorch's channels_last batch-norm kernels. The float32 parameters, their gradients and the
+optimizer's slots stay contiguous (``_NhwcKernel``). Elsewhere (the CPU,
+float32 compute) the convs take contiguous NCHW tensors. Each conv counts
+its route (``utils/spans.py``: ``layout.nhwc_conv`` / ``layout.nchw_conv``)
+while a profiler runs.
 """
 
 from __future__ import annotations
@@ -43,7 +59,7 @@ import torch.nn.functional as F
 from mmdgan_torch.models.initializers import bias_initializer, weight_initializer
 from mmdgan_torch.models.scaling import avg_pool, max_pool
 from mmdgan_torch.ops.conv import Geometry, conv_transpose_ps3
-from mmdgan_torch.parallel.collectives import batch_moments
+from mmdgan_torch.parallel.collectives import all_reduce
 from mmdgan_torch.ops.spectral_norm import (
     EPSI,
     SnDef,
@@ -52,6 +68,7 @@ from mmdgan_torch.ops.spectral_norm import (
     spectral_norm_pim_apply,
     spectral_norm_pim_init,
 )
+from mmdgan_torch.utils import spans
 
 # The transposed conv's lowering (``mmdgan_tpu/models/ops.py:50-63``): a
 # ``tc``/``tcck`` k=4/s2/SAME whose input is at least this tall runs as
@@ -69,6 +86,103 @@ BN_EPS = 1e-3
 
 CONDITIONAL_OPS = ("c_bias", "cb", "bcb", "cbn", "project", "dcd", "dck", "cck", "tcck")
 _CONV_OPS = ("c", "tc", "cck", "tcck", "sc", "max", "avg", "sum")
+
+
+def nhwc_route(x: torch.Tensor, compute_dtype: torch.dtype, _any_device: bool = False) -> bool:
+    """Whether a conv of ``x`` runs channels_last: on a CUDA tensor in a
+    16-bit compute dtype (``_any_device`` lets the tests take the route on
+    the CPU)."""
+    return (x.is_cuda or _any_device) and compute_dtype in (torch.bfloat16, torch.float16)
+
+
+class _NhwcKernel(torch.autograd.Function):
+    """A kernel cast to ``dtype`` in channels_last memory, one copy; its
+    gradient comes back in the kernel's dtype and contiguous, one copy, so
+    a parameter's gradient keeps the parameter's strides (which the
+    optimizer's multi-tensor ``_foreach`` ops need for their fused path)."""
+
+    @staticmethod
+    def forward(ctx, w, dtype):
+        ctx.src_dtype = w.dtype
+        return w.to(dtype=dtype, memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(dtype=ctx.src_dtype, memory_format=torch.contiguous_format), None
+
+
+def _nhwc_map(x: torch.Tensor) -> bool:
+    """A 4-D map held channels_last (and not also contiguous, as a map
+    with one channel or one pixel is)."""
+    return (x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last)
+            and not x.is_contiguous())
+
+
+class _ChannelSum(torch.autograd.Function):
+    """``x`` [N, C, H, W] summed over (0, 2, 3): a GEMV over the rows of its
+    NHWC memory where ``x`` is channels_last (PyTorch's reduction over a
+    channels_last map's outer dims ran 2-6x slower than over NCHW on the
+    H100), else a plain sum. Its adjoint is ``_ChannelBroadcast``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        if _nhwc_map(x):
+            rows = x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])   # a view
+            return torch.matmul(rows.new_ones(rows.shape[0]), rows)
+        return x.sum((0, 2, 3))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ChannelBroadcast.apply(g, ctx.shape)
+
+
+class _ChannelBroadcast(torch.autograd.Function):
+    """A [C] vector broadcast to ``shape`` [N, C, H, W] (a view), whose
+    gradient is ``_ChannelSum``'s GEMV and not autograd's reduction."""
+
+    @staticmethod
+    def forward(ctx, v, shape):
+        return v.view(1, -1, 1, 1).expand(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ChannelSum.apply(g), None
+
+
+def _nhwc(x: torch.Tensor, compute_dtype: torch.dtype) -> bool:
+    """``x`` is a channels_last map on the NHWC route."""
+    return nhwc_route(x, compute_dtype) and _nhwc_map(x)
+
+
+def per_channel(v: torch.Tensor, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """A [C] vector broadcast against ``x`` [N, C] or [N, C, H, W]; on the
+    NHWC route through ``_ChannelBroadcast``."""
+    if _nhwc(x, compute_dtype):
+        return _ChannelBroadcast.apply(v, x.shape)
+    return v.view((-1,) + (1,) * (x.dim() - 2))
+
+
+def batch_moments(x: torch.Tensor, compute_dtype: torch.dtype, dp=None):
+    """BN's train-mode statistics of ``x`` [N, C] or [N, C, H, W] over all
+    but its channels: (mean, biased variance, ``x`` centred). With a mesh
+    (``dp``) they are the global batch's, each rank holding ``x``'s share
+    (``mmdgan_tpu/models/ops.py:536-552`` under XLA's partitioner): two
+    cross-replica sums, the mean, then the squared deviations from it, as
+    ``jnp.var`` computes them, on the NHWC route ``_ChannelSum``'s GEMVs.
+    Without one, ``torch.mean`` and ``torch.var``."""
+    dims = (0,) if x.dim() == 2 else (0, 2, 3)
+    if dp is None:
+        mean = torch.mean(x, dim=dims)
+        return mean, torch.var(x, dim=dims, correction=0), x - per_channel(mean, x, compute_dtype)
+    nhwc = _nhwc(x, compute_dtype)
+
+    def total(t):
+        return all_reduce(_ChannelSum.apply(t) if nhwc else t.sum(dims), dp)
+    n = x.numel() // x.shape[1] * dp.size
+    mean = total(x) / n
+    centred = x - per_channel(mean, x, compute_dtype)
+    return mean, total(centred * centred) / n, centred
 
 
 def squeeze_labels(label: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -269,11 +383,29 @@ class ParametricOp:
             return act_k / sigma
         return 1.0 / sigma
 
-    def _conv(self, x, w):
+    def _conv(self, x, w, pointwise=None):
+        """The op's conv in ``compute_dtype``: ``c``/``cck`` or ``tc``/``tcck``
+        by ``w``, or with ``pointwise`` the ``sc`` depthwise conv by ``w``
+        then the 1x1 conv; channels_last where ``nhwc_route`` holds."""
         cd = self.compute_dtype
+        if nhwc_route(x, cd):
+            spans.count("layout.nhwc_conv")
+            x = x.to(dtype=cd, memory_format=torch.channels_last)
+            cast = lambda k: _NhwcKernel.apply(k, cd)   # noqa: E731
+        else:
+            spans.count("layout.nchw_conv")
+            x = x.to(cd)
+            cast = lambda k: k.to(cd)   # noqa: E731
+        geo = self.geometry
+        if pointwise is not None:
+            (lh, hh), (lw, hw) = geo.pads
+            xp = x if geo.symmetric else F.pad(x, (lw, hw, lh, hh))
+            y = F.conv2d(xp, cast(w), stride=geo.strides, dilation=geo.dilation,
+                         padding=(lh, lw) if geo.symmetric else 0, groups=self.input_shape[0])
+            return F.conv2d(y, cast(pointwise))
         if self.tc_ps3:
-            return conv_transpose_ps3(x.to(cd), w.to(cd))
-        return self.geometry.forward(x.to(cd), w.to(cd))
+            return conv_transpose_ps3(x, cast(w))
+        return geo.forward(x, cast(w))
 
     def apply(self, params: Dict, state: Dict, x: torch.Tensor, train: bool = True,
               label: Optional[torch.Tensor] = None, dp=None) -> Tuple[torch.Tensor, Dict]:
@@ -311,13 +443,7 @@ class ParametricOp:
         elif op in ("c", "tc"):
             y = self._conv(x, kernel)
         elif op == "sc":
-            geo = self.geometry
-            dw = params["depthwise_kernel"].to(cd)
-            (lh, hh), (lw, hw) = geo.pads
-            xp = x.to(cd) if geo.symmetric else F.pad(x.to(cd), (lw, hw, lh, hh))
-            y = F.conv2d(xp, dw, stride=geo.strides, dilation=geo.dilation,
-                         padding=(lh, lw) if geo.symmetric else 0, groups=self.input_shape[0])
-            y = F.conv2d(y, params["pointwise_kernel"].to(cd))
+            y = self._conv(x, params["depthwise_kernel"], params["pointwise_kernel"])
         elif op == "max":
             y = max_pool(x, d["kernel"], d["strides"], d["padding"])
         elif op in ("avg", "sum"):
@@ -326,8 +452,7 @@ class ParametricOp:
             if op == "sum":
                 y = y * d["kernel"] ** 2
         elif op in ("b", "bias"):
-            b = params["bias"]
-            y = x + (b if x.dim() == 2 else b.view(-1, 1, 1))
+            y = x + per_channel(params["bias"], x, cd)
         elif op in ("bn", "cbn"):
             y, new_state = self._batch_norm(params, state, new_state, x, train, label, dp)
         elif op == "lrn":
@@ -338,8 +463,7 @@ class ParametricOp:
         elif op in ("c_bias", "cb"):
             y = x + params["c_bias"][label]
         elif op == "bcb":
-            b = params["bias"]
-            y = x + (b if x.dim() == 2 else b.view(-1, 1, 1)) + params["c_bias"][label]
+            y = x + per_channel(params["bias"], x, cd) + params["c_bias"][label]
         elif op == "dcd":
             y = torch.matmul(x.to(cd), kernel.to(cd))
             y = y + torch.einsum("ni,nio->no", x.float(), params["c_kernel"][label])
@@ -356,30 +480,39 @@ class ParametricOp:
         """BN by hand: biased batch variance, like tf.layers (and unlike
         ``nn.BatchNorm2d``, which stores the unbiased one); ``cbn`` scales
         and offsets per class (layer_func.py:967-971). With a mesh the
-        train-mode statistics are the global batch's (cross-replica sums,
-        ``mmdgan_tpu/models/ops.py:536-552`` under XLA's partitioner), so
-        the moving statistics are the same on every rank."""
+        train-mode statistics are the global batch's (``batch_moments``),
+        so the moving statistics are the same on every rank. On the NHWC
+        route without a mesh's statistics, ``torch.native_batch_norm``
+        normalises: its channels_last kernels ran BN's forward and
+        backward 3x faster on the H100 than the same arithmetic in
+        elementwise ops and GEMVs, over the same biased variance, which
+        comes back from its ``1 / sqrt(var + eps)``."""
         x = x.float()
-        dims = (0,) if x.dim() == 2 else (0, 2, 3)
-        view = (1, -1) if x.dim() == 2 else (1, -1, 1, 1)
-        if train and dp is not None:
-            mean, var = batch_moments(x, dims, dp)
-        elif train:
-            mean = torch.mean(x, dim=dims)
-            var = torch.var(x, dim=dims, correction=0)
+        cd = self.compute_dtype
+        cbn = self.design["op"] == "cbn"
+        gamma, beta = (None, None) if cbn else (params.get("gamma"), params.get("beta"))
+        if _nhwc(x, cd) and not (train and dp is not None):
+            moving = (None, None) if train else (state["moving_mean"], state["moving_var"])
+            y, mean, invstd = torch.native_batch_norm(x, gamma, beta, *moving, train, 0.0, BN_EPS)
+            var = invstd.detach() ** -2 - BN_EPS if train else None
+            gamma = beta = None
+        else:
+            if train:
+                mean, var, centred = batch_moments(x, cd, dp)
+            else:
+                mean, var = state["moving_mean"], state["moving_var"]
+                centred = x - per_channel(mean, x, cd)
+            y = centred * per_channel(torch.rsqrt(var + BN_EPS), x, cd)
         if train:
             with torch.no_grad():
                 new_state["moving_mean"] = (
                     BN_MOMENTUM * state["moving_mean"] + (1.0 - BN_MOMENTUM) * mean)
                 new_state["moving_var"] = (
                     BN_MOMENTUM * state["moving_var"] + (1.0 - BN_MOMENTUM) * var)
-        else:
-            mean, var = state["moving_mean"], state["moving_var"]
-        y = (x - mean.view(view)) * torch.rsqrt(var + BN_EPS).view(view)
-        if self.design["op"] == "cbn":
+        if cbn:
             return y * params["scale"][label] + params["offset"][label], new_state
-        if "gamma" in params:
-            y = y * params["gamma"].view(view)
-        if "beta" in params:
-            y = y + params["beta"].view(view)
+        if gamma is not None:
+            y = y * per_channel(gamma, y, cd)
+        if beta is not None:
+            y = y + per_channel(beta, y, cd)
         return y, new_state

@@ -1,10 +1,12 @@
 """SNGan: generator + discriminator + the GAN losses and their penalties
 (``mmdgan_tpu/models/sngan.py:35-66,69-328,357-444``).
 
-Internally NCHW on ``self.device``. ``generate`` returns NHWC images and
-data batches arrive NHWC (``{"x": [B, H, W, C]}``); ``to_nchw`` is the one
-place the layout changes. ``gen_stage`` and ``dis_stage`` are the two
-halves of the train step and work on NCHW tensors.
+Internally NCHW shapes on ``self.device``; on the card under 16-bit
+compute the memory is NHWC (``channels_last``, ``models/ops.py``
+``nhwc_route``). ``generate`` returns NHWC images and data batches arrive
+NHWC (``{"x": [B, H, W, C]}``); ``to_nchw`` is the one place the shape
+changes. ``gen_stage`` and ``dis_stage`` are the two halves of the train
+step and work on NCHW-shaped tensors.
 
 With ``num_class`` >= 2 the model is class-conditional: code batches
 carry labels ``y`` ([N, 1] int64, drawn uniformly unless given), the
@@ -58,7 +60,8 @@ def decode_image_batch(data_batch: Dict) -> Dict:
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
-    """An NHWC image batch as NCHW."""
+    """An NHWC image batch as an NCHW-shaped view: its memory stays NHWC,
+    which is ``channels_last``, the layout the card's 16-bit convs take."""
     return x.permute(0, 3, 1, 2)
 
 

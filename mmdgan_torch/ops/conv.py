@@ -1,5 +1,9 @@
-"""Convolutions with the JAX package's padding rules, in NCHW, and their
-adjoints (``mmdgan_tpu/models/ops.py:72-84,365-382``; ``lax`` semantics).
+"""Convolutions with the JAX package's padding rules, and their adjoints
+(``mmdgan_tpu/models/ops.py:72-84,365-382``; ``lax`` semantics). Shapes
+are NCHW; memory is whatever the caller passes, NHWC (``channels_last``)
+on the card under 16-bit compute (``models/ops.py`` ``nhwc_route``), and
+the calls below keep it: torch's convs and ``F.pad`` return the layout of
+their input.
 
 A ``Geometry`` holds what ``lax.conv_general_dilated`` (op ``c``) or
 ``lax.conv_transpose`` (op ``tc``) makes of ``SAME`` / ``VALID`` padding,
@@ -150,10 +154,16 @@ def ps3_kernel(w: torch.Tensor) -> torch.Tensor:
 
 def ps3_conv(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     """The 3x3/s1 conv (pad 1) to the four phases' channels, then
-    depth-to-space: channel (p, q, c) at (i, j) goes to (c, 2i + p, 2j + q)."""
+    depth-to-space: channel (p, q, c) at (i, j) goes to (c, 2i + p, 2j + q).
+    The result keeps the conv's memory layout (one copy either way)."""
     n, _, h, wd = x.shape
     cout = w3.shape[0] // 4
-    z = F.conv2d(x, w3, padding=1).reshape(n, 2, 2, cout, h, wd)
+    z = F.conv2d(x, w3, padding=1)
+    if z.is_contiguous(memory_format=torch.channels_last):
+        # NHWC memory (n, i, j, p, q, c) to (n, i, p, j, q, c)
+        z = z.permute(0, 2, 3, 1).reshape(n, h, wd, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
+        return z.reshape(n, 2 * h, 2 * wd, cout).permute(0, 3, 1, 2)
+    z = z.reshape(n, 2, 2, cout, h, wd)
     return z.permute(0, 3, 4, 1, 5, 2).reshape(n, cout, 2 * h, 2 * wd)
 
 

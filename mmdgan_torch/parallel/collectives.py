@@ -58,7 +58,7 @@ collective.
 
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Sequence
+from typing import Any, List, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -181,16 +181,6 @@ def batch_mean(t: torch.Tensor, dp=None) -> torch.Tensor:
     return all_reduce(t.sum(), dp) / (t.numel() * dp.size)
 
 
-def batch_moments(x: torch.Tensor, dims: Sequence[int], dp):
-    """Mean and biased variance over ``dims`` of the global batch, each
-    rank holding ``x``'s share: two cross-replica sums (the mean, then
-    the squared deviations from it, as ``jnp.var`` computes them)."""
-    n = x.numel() // x.shape[1] * dp.size
-    mean = all_reduce(x.sum(dim=dims, keepdim=True), dp) / n
-    var = all_reduce(torch.square(x - mean).sum(dim=dims, keepdim=True), dp) / n
-    return mean.reshape(-1), var.reshape(-1)
-
-
 def average_flat(tensors: List[torch.Tensor], dp) -> List[torch.Tensor]:
     """``tensors`` averaged over every rank of the mesh through one flat
     buffer: one collective whatever their number (the gradients of one
@@ -249,5 +239,5 @@ def gathered_mean(t: torch.Tensor, dp=None) -> torch.Tensor:
 
 __all__ = ["Axis", "all_gather", "all_reduce", "all_gather_raw", "all_reduce_raw",
            "broadcast_raw_", "reduce_scatter_raw", "average_flat", "batch_mean",
-           "batch_moments", "from_rank0", "gathered_mean", "gather_shards",
+           "from_rank0", "gathered_mean", "gather_shards",
            "scatter_gradients"]

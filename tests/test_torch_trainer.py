@@ -352,7 +352,10 @@ def test_do_trace_profiles_the_last_windows(tmp_path, path, max_step, windows):
     assert names.count("agent.guard") == windows and names.count("agent.report") == windows
     assert names.count("agent.feed_wait") == (windows if path == "host" else 0)
     assert "agent.call" not in names      # the call began before the profiler
-    assert set(names) <= events and saved["counters"] == {}
+    assert set(names) <= events
+    # the only counter: the traced windows' convs, on the CPU's NCHW route
+    counted = saved["counters"]
+    assert list(counted) == ["layout.nchw_conv"] and counted["layout.nchw_conv"] > 0
 
 
 def test_train_device_data_shuffled_resume_bitwise(tmp_path):
