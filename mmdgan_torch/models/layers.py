@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from mmdgan_torch.models.ops import ParametricOp
 from mmdgan_torch.models.scaling import ImageScaling
 from mmdgan_torch.ops.distance import get_batch_squared_dist
+from mmdgan_torch.utils import spans
 
 
 def update_layer_design(layer_design: dict) -> dict:
@@ -330,7 +331,16 @@ class Layer:
 
     def apply(self, params: Dict, state: Dict, x: torch.Tensor, train: bool = True,
               label: Optional[torch.Tensor] = None, dp=None):
-        """Returns (out, new_state); ``dp`` as ``Routine.apply``."""
+        """Returns (out, new_state); ``dp`` as ``Routine.apply``. Under a
+        window's ``StageTimer`` the block hands it its map shapes, in and out."""
+        timer = spans.stage_timer()
+        if timer is not None:
+            return timer.run((self.input_shape, self.pre_out_reshape_shape),
+                             lambda p, v: self._apply(p, state, v, train, label, dp), params, x)
+        return self._apply(params, state, x, train, label, dp)
+
+    def _apply(self, params: Dict, state: Dict, x: torch.Tensor, train: bool,
+               label: Optional[torch.Tensor], dp):
         assert tuple(x.shape[1:]) == self.input_shape, (
             f"{self.layer_scope}: input shape {tuple(x.shape[1:])} does not match "
             f"declared {self.input_shape}")

@@ -523,15 +523,20 @@ def _window(step: Callable, ts: TrainState, num_steps: int, batch_at: Callable,
             codes: Optional[Dict], do_dis: bool, do_gen: bool):
     """K steps; returns the [n_scalars, K] stacked scalar metrics, then one
     [K, nbins] stack per ``hist/*`` metric, then the keys of both.
-    ``codes``: K-stacked z (and code labels) replacing the draws."""
+    ``codes``: K-stacked z (and code labels) replacing the draws. Traced
+    and eager on CUDA, the model's full-resolution layers are timed
+    (``spans.window_timer``)."""
     per_step = []
-    for k in range(num_steps):
-        if codes is None:
-            ts, m = step(ts, batch_at(k), do_dis, do_gen)
-        else:
-            ts, m = step(ts, batch_at(k), do_dis, do_gen,
-                         {key: None if v is None else v[k] for key, v in codes.items()})
-        per_step.append(m)
+    with spans.timing(spans.window_timer(ts.step.device)) as timer:
+        for k in range(num_steps):
+            if codes is None:
+                ts, m = step(ts, batch_at(k), do_dis, do_gen)
+            else:
+                ts, m = step(ts, batch_at(k), do_dis, do_gen,
+                             {key: None if v is None else v[k] for key, v in codes.items()})
+            per_step.append(m)
+            if timer is not None:
+                timer.next_step()
     keys = tuple(k for k, v in per_step[0].items() if v.dim() == 0)
     hist_keys = tuple(k for k, v in per_step[0].items() if v.dim() > 0)
     stack = lambda key: torch.stack([m[key] for m in per_step])
