@@ -253,6 +253,27 @@ Phases, each fatal on failure:
      cifar over 50,000 seeded rows, 128 timed steps each;
    - 17e: ``export_study`` on cifar at b256: images/s of the in-process,
      exported and weights-as-inputs generators.
+18. the fused bias, cast and activation of a conv block
+   (``ops/cuda_bias_act.py``, ``csrc/bias_act.cu``), against the plain
+   block's ops on the card (``x + bias`` in float32, the cast, the 16-bit
+   activation; autograd for the gradients): for each activation (linear,
+   relu, lrelu, tanh) in bf16 and fp16, every 16-bit value through the
+   forward and the backward (outputs and activation gradients bitwise;
+   tanh within one 16-bit ulp if the card's ``tanhf`` rounds otherwise,
+   said in the log), seeded maps of C = 3, 24, 32, 64 and 1024 with odd
+   rows and cifar10's ``dis/l1_f64`` (128 x 64 x 32 x 32) (the same, and
+   the bias's gradient within float32 rounding of its GEMV), a double
+   backward (``create_graph``, as the penalties run it) through the
+   kernels against the plain ops' (bitwise; tanh within the ulps above),
+   two backward runs bitwise equal under deterministic algorithms, and
+   forward and backward captured in a CUDA graph whose replays equal the
+   eager launches; then both timed, with the plain ops beside them and
+   compared with them as above, at hd512's ``dis/l1_f512`` (128 x 32 x 512
+   x 512) and celeba64's ``dis/l1_f64`` (128 x 64 x 64 x 64): device ms a
+   launch and its share of 3.35 TB/s, at least 70% each way at
+   ``l1_f512``. The counted phases (5, 10, 12-15) assert the pair's
+   launches in each eager window and capture of the main path
+   (``bias_act_per_step``), and the kernels line gives those.
 
 The line before the last two is a JSON object of the kernels, the next
 the nvidia-smi line, the last ``{"ok": true, "device": {...}}``. Without a
@@ -279,6 +300,7 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 from functools import cache, partial
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -294,12 +316,12 @@ from mmdgan_torch.architectures import (  # noqa: E402
 from mmdgan_torch.data.synthetic import synthetic_image_batches  # noqa: E402
 from mmdgan_torch.data.tfrecord import np_to_tfrecords  # noqa: E402
 from mmdgan_torch.models.sngan import SNGan  # noqa: E402
-from mmdgan_torch.ops import _build, cuda_mmd  # noqa: E402
+from mmdgan_torch.ops import _build, cuda_bias_act, cuda_mmd  # noqa: E402
 from mmdgan_torch.ops.losses import LossState  # noqa: E402
 from mmdgan_torch.train.optim import OptState, multi_opt_config  # noqa: E402
 from mmdgan_torch.train.state import TrainState, loss_state_leaves, tree_leaves, tree_map  # noqa: E402
 from mmdgan_torch.models.network import Net, Routine  # noqa: E402
-from mmdgan_torch.models.ops import ParametricOp  # noqa: E402
+from mmdgan_torch.models.ops import ParametricOp, bias_act_plain  # noqa: E402
 from mmdgan_torch.train.step import (  # noqa: E402
     build_device_data_step,
     build_grad_accum_step,
@@ -694,7 +716,8 @@ def run_main_path(dev, loss_type: str, card: str) -> tuple:
     count is the launches made; each window must hold one forward and two
     backward per step. The wrappers' counters, zeroed just before, see
     eager calls and captures: they must equal the eager windows' launches
-    plus K forward and 2K backward per capture.
+    plus K forward and 2K backward per capture, and the fused
+    bias-activation pair's ``bias_act_per_step`` in each.
     Timed run: WARMUP_CALLS + MEASURE_CALLS more windows of each driver,
     unprofiled, for steps/s."""
     forward, backward = cuda_mmd.kernel_means_cuda, cuda_mmd.kernel_means_backward_cuda
@@ -703,7 +726,7 @@ def run_main_path(dev, loss_type: str, card: str) -> tuple:
     params0 = [p.detach().clone() for p in tree_leaves(ts.params)]
     state0 = [v.clone() for v in tree_leaves(ts.net_state)]
     torch.cuda.reset_peak_memory_stats(dev)
-    forward.launches = backward.launches = 0
+    reset_counters()
     # the second window (the capture and its first replay) also holds the
     # profiler's raw reader against prof.events()
     graphed = [_profiled_window(multi, ts, batches, f"{loss_type} graphed window {i}",
@@ -717,11 +740,10 @@ def run_main_path(dev, loss_type: str, card: str) -> tuple:
         graphs.eager, graphs.captures, graphs.replays)
     counted = [sum(w[kernel] for w in graphed + eager) for kernel in KERNEL_EVENTS]
     # every profiled window holds per_step launches per step (asserted), so
-    # the counters see that many per eager window and per capture
+    # the counters see that many per eager window and per capture, the
+    # fused bias-activation pair's too
     counters = [forward.launches, backward.launches]
-    want = [per_step * SCAN_K * (graphs.eager + n_eager + graphs.captures)
-            for per_step in KERNEL_EVENTS.values()]
-    assert counters == want, f"{loss_type}: counters {counters}, eager windows + capture {want}"
+    assert_counted(f"{loss_type} main path", graphs.eager + n_eager + graphs.captures, model)
 
     ts, m, graphed_sps = timed_windows(multi, ts, batches)
     ts_eager, m_eager, eager_sps = timed_windows(eager_multi, ts_eager, batches)
@@ -1222,15 +1244,51 @@ def check_penalty_determinism(dev) -> None:
 
 def reset_counters() -> None:
     cuda_mmd.kernel_means_cuda.launches = cuda_mmd.kernel_means_backward_cuda.launches = 0
+    cuda_bias_act.bias_act_forward_cuda.launches = 0
+    cuda_bias_act.bias_act_backward_cuda.launches = 0
 
 
-def assert_counted(what: str, windows: int) -> None:
+def bias_act_per_step(model: SNGan, micro: int = 1) -> list:
+    """[forward, backward] launches of the fused bias-activation pair in
+    one optimizer step of a loss without penalty or scale: the step runs
+    G's and D's fused blocks forward once and pulls two gradients, so D's
+    blocks run backward twice (``loss_dis``, ``loss_gen``) and G's once;
+    the accumulated step (``micro`` M > 1) runs each micro-batch forward
+    twice (without autograd, then with it) and pulls the two gradients
+    once per micro-batch."""
+    d, g = (sum(layer.fused_act is not None for layer in net.layers)
+            for net in (model.Dis, model.Gen))
+    if micro == 1:
+        return [d + g, 2 * d + g]
+    return [2 * micro * (d + g), micro * (2 * d + g)]
+
+
+# [what, windows, [forward, backward]] of the fused pair's launches, read
+# by ``assert_counted``: the main path's own, which the kernels line sums
+BIAS_ACT_COUNTED = []
+
+
+def assert_counted(what: str, windows: int, model: Optional[SNGan] = None,
+                   micro: int = 1) -> None:
     """The wrappers' counters, zeroed before, after ``windows`` eager
     windows or captures of K optimizer steps: 1 forward and 2 backward
-    launches per optimizer step in each."""
+    kernel-means launches per optimizer step in each, and with ``model``
+    ``bias_act_per_step`` fused bias-activation launches (recorded in
+    ``BIAS_ACT_COUNTED``)."""
     got = [cuda_mmd.kernel_means_cuda.launches, cuda_mmd.kernel_means_backward_cuda.launches]
     want = [n * SCAN_K * windows for n in KERNEL_EVENTS.values()]
     assert got == want, f"{what}: kernel-means counters {got}, want {want}"
+    if model is None:
+        return
+    got = [cuda_bias_act.bias_act_forward_cuda.launches,
+           cuda_bias_act.bias_act_backward_cuda.launches]
+    per_step = bias_act_per_step(model, micro)
+    assert got == [n * SCAN_K * windows for n in per_step], (
+        f"{what}: bias-activation counters {got}, want {per_step} a step in {windows} windows")
+    BIAS_ACT_COUNTED.append([what, windows, got])
+    log(f"[bias_act] {what}: {got[0]} forward and {got[1]} backward launches in {windows} "
+        f"eager windows or captures of {SCAN_K} steps, {per_step[0]} + {per_step[1]} a step "
+        "(one forward per fused block, two backwards per D block, one per G block)")
 
 
 def run_family(dev, name: str, arch: dict, card: str) -> list:
@@ -1245,7 +1303,7 @@ def run_family(dev, name: str, arch: dict, card: str) -> list:
     n_params = sum(p.numel() for p in tree_leaves(ts.params))
     reset_counters()
     ts, m, sps = timed_windows(multi, ts, batches)
-    assert_counted(name, multi.graphs.eager + multi.graphs.captures)
+    assert_counted(name, multi.graphs.eager + multi.graphs.captures, model)
     prof = _profiled_window(multi, ts, batches, f"{name} replayed window")
     bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
     assert not bad, f"{name}: non-finite {bad}"
@@ -1300,7 +1358,7 @@ def run_hd512(dev, card: str) -> list:
             del ts, fn, drive
             continue
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        assert_counted(f"hd512 M={micro}", fn.graphs.eager + fn.graphs.captures)
+        assert_counted(f"hd512 M={micro}", fn.graphs.eager + fn.graphs.captures, model, micro)
         prof = _profiled_window(drive, ts, None, f"hd512 M={micro} replayed window")
         launches = [launches[0] + prof["kernel_means_fwd"], launches[1] + prof["kernel_means_bwd"]]
         bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
@@ -1366,7 +1424,8 @@ def check_window_determinism(dev) -> list:
         for name, make_multi in ((f"accumulated M={ACCUM_M}", accum),
                               (f"imbalanced {IMBALANCED}", imbalanced)):
             for capture in (True, False):
-                _, ts, multi, batches = main_path_setup(dev, "rep", capture, make_multi=make_multi)
+                model, ts, multi, batches = main_path_setup(dev, "rep", capture,
+                                                            make_multi=make_multi)
                 avg = torch.zeros((), device=dev)
                 drive = multi if make_multi is accum else (
                     lambda ts, b, multi=multi: multi(ts, b, None, avg))
@@ -1375,7 +1434,8 @@ def check_window_determinism(dev) -> list:
                     ts, m = drive(ts, batches)
                 torch.cuda.synchronize()
                 assert_counted(f"{name} capture={capture}",
-                               multi.graphs.eager + multi.graphs.captures if capture else 4)
+                               multi.graphs.eager + multi.graphs.captures if capture else 4,
+                               model, ACCUM_M if make_multi is accum else 1)
                 if capture:
                     assert multi.graphs.replays == 3, multi.graphs.replays
                 if make_multi is imbalanced:
@@ -1918,7 +1978,7 @@ def run_conditional(dev, card: str) -> list:
     assert len(watched) == 7, sorted(watched)   # 3 cbn x (scale, offset) + dck's c_kernel
     reset_counters()
     ts, m, sps = timed_windows(multi, ts, batches)
-    assert_counted("conditional cifar10", multi.graphs.eager + multi.graphs.captures)
+    assert_counted("conditional cifar10", multi.graphs.eager + multi.graphs.captures, model)
     prof = _profiled_window(multi, ts, batches, "conditional cifar10 replayed window")
     bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
     assert not bad and all(torch.isfinite(t.float()).all() for t in ts.tensors()), bad
@@ -2176,13 +2236,13 @@ def check_mesh_main_path(dp, card: str) -> list:
     dev = dp.device
     meshed = lambda model, od, og, k, capture=True: build_multi_step(  # noqa: E731
         model, od, og, k, capture=capture, dp=dp)
-    _, ts, multi, batches = main_path_setup(dev, "rep", make_multi=meshed)
+    model, ts, multi, batches = main_path_setup(dev, "rep", make_multi=meshed)
     dp.replicate(ts)
     reset_counters()
     profs = [_profiled_window(multi, ts, batches, f"mesh window {i}") for i in range(3)]
     assert (multi.graphs.eager, multi.graphs.captures) == (1, 1), (
         multi.graphs.eager, multi.graphs.captures)
-    assert_counted("mesh main path", 2)
+    assert_counted("mesh main path", 2, model)
     counted = [sum(p[k] for p in profs) for k in KERNEL_EVENTS]
     collectives = profs[0]["nccl_ops"] / SCAN_K
     assert collectives > 0, "the eager mesh window issued no NCCL collective"
@@ -2693,7 +2753,7 @@ def check_fsdp_main_path(dp, card: str, tmp: str) -> list:
     profs = [_profiled_window(multi, ts, batches, f"fsdp window {i}") for i in range(3)]
     assert (multi.graphs.eager, multi.graphs.captures) == (1, 1), (
         multi.graphs.eager, multi.graphs.captures)
-    assert_counted("fsdp main path", 2)
+    assert_counted("fsdp main path", 2, model)
     counted = [sum(p[k] for p in profs) for k in KERNEL_EVENTS]
     collectives = profs[0]["nccl_ops"] / SCAN_K
     copies, copies_ms = _device_calls(profs[-1], "memcpy")
@@ -3238,7 +3298,7 @@ def check_simdata(dev, card: str) -> list:
         ts, m = multi(ts, window())
     torch.cuda.synchronize()
     rate = SIM_STEPS / (time.perf_counter() - start)
-    assert_counted("15c SimData (the eager warm-up window and the capture)", 2)
+    assert_counted("15c SimData (the eager warm-up window and the capture)", 2, model)
     after, mean = mmd()
     assert np.isfinite(after) and after < 0.7 * before, (before, after)
     np.testing.assert_allclose(mean, [0.5, -0.3], atol=0.25)
@@ -3764,6 +3824,231 @@ def check_tc_gate_on_card(dev) -> None:
         f"d/dkernel {errs[2]:.2e} relative")
 
 
+# phase 18: seeded maps (N, C, H, W) with odd rows, and the timed shapes
+BIAS_ACT_SHAPES = [(3, 32, 17, 19), (2, 3, 64, 64), (2, 1024, 4, 4), (5, 24, 7, 9),
+                   (3, 64, 33, 31), (128, 64, 32, 32)]   # the last: cifar10's dis/l1_f64
+BIAS_ACT_TIMED = (("hd512 dis/l1_f512", (128, 32, 512, 512)),
+                  ("celeba64 dis/l1_f64", (128, 64, 64, 64)))
+HBM_BYTES_PER_S = 3.35e12           # the H100 SXM's published bandwidth
+BIAS_ACT_MIN_SHARE = 0.70           # of it, each way, at hd512's dis/l1_f512
+BIAS_ACT_SUM_TOL = 1e-5             # float32 sums in two orders, of the sum of magnitudes
+BIAS_ACT_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def _bits(t):
+    return t.contiguous(memory_format=torch.channels_last).view(torch.int16)
+
+
+def _ulps(got, want) -> int:
+    """Largest gap in 16-bit ulps between two maps of one sign pattern."""
+    return int((_bits(got).int() - _bits(want).int()).abs().max())
+
+
+def every_16bit(dtype, dev, repeat: int = 1):
+    """Every 16-bit pattern of ``dtype``, ``repeat`` times, as a
+    channels_last [repeat, 8, 8192, 1] map."""
+    v = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(dtype)
+    return v.repeat(repeat).to(dev).view(repeat, 8192, 1, 8).permute(0, 3, 1, 2)
+
+
+def _bias_act_pair(x, bias, act, ct):
+    """(y, gx, gb) of the kernels and of autograd through the plain ops."""
+    y = cuda_bias_act.bias_act_forward_cuda(x, bias, act)
+    gx, gb = cuda_bias_act.bias_act_backward_cuda(ct, y, act, True)
+    xr, br = x.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+    want = bias_act_plain(xr, br, act)
+    want_gx, want_gb = torch.autograd.grad(want, (xr, br), ct)
+    return (y, gx, gb), (want.detach(), want_gx, want_gb)
+
+
+def _check_bitwise(got, want, act: str, what: str, ulps: dict) -> None:
+    """Bitwise, or for tanh within one ulp (recorded in ``ulps``)."""
+    if torch.equal(_bits(got), _bits(want)):
+        return
+    gap = _ulps(got, want)
+    assert act == "tanh" and gap <= 1, f"bias_act {act} {what}: {gap} ulps from the plain ops"
+    ulps[what] = max(ulps.get(what, 0), gap)
+
+
+def _double_backward_pair(act: str, dev) -> tuple:
+    """(the kernels', the plain ops') [gx, gb, x's second, the bias's
+    second, ct's second] of a double backward over a seeded bf16 map: the
+    gradients of x and the bias by ``ct`` taken with ``create_graph``,
+    then those of x, the bias and ``ct`` by a seeded weighting of both
+    (x's and the bias's are zero, absent through the kernels, but for
+    tanh)."""
+    g = torch.Generator().manual_seed(21)
+    cl = dict(memory_format=torch.channels_last)
+    shape = (3, 32, 17, 19)
+    x0 = (torch.randn(shape, generator=g) * 2).bfloat16().contiguous(**cl).to(dev)
+    b0 = torch.randn(shape[1], generator=g).to(dev)
+    ct0 = torch.randn(shape, generator=g).bfloat16().contiguous(**cl).to(dev)
+    w = torch.randn(shape, generator=g).to(dev)
+    v = torch.randn(shape[1], generator=g).to(dev)
+    out = []
+    for fn in (cuda_bias_act.bias_act, bias_act_plain):
+        x, b, ct = (t.clone().requires_grad_(True) for t in (x0, b0, ct0))
+        gx, gb = torch.autograd.grad(fn(x, b, act), (x, b), ct, create_graph=True)
+        second = torch.autograd.grad((gx.float() * w).sum() + (gb * v).sum(), (x, b, ct),
+                                     allow_unused=True)
+        out.append([t.detach() for t in [gx, gb] + [
+            torch.zeros_like(t) if d is None else d for t, d in zip((x, b, ct), second)]])
+    return tuple(out)
+
+
+def check_bias_act_values(dev) -> dict:
+    """Phase 18's checks: every 16-bit value, seeded maps, determinism, a
+    graph. Returns the largest relative gap of the bias's gradient."""
+    ulps, worst = {}, 0.0
+    cl = dict(memory_format=torch.channels_last)
+    for dtype in BIAS_ACT_DTYPES:
+        name = str(dtype).split(".")[-1]
+        for act in cuda_bias_act.ACTS:
+            g = torch.Generator().manual_seed(18)
+            x = every_16bit(dtype, dev, repeat=4)
+            ct = torch.randn(x.shape, generator=g).to(dtype).contiguous(**cl).to(dev)
+            for bias in (torch.zeros(8, device=dev), torch.randn(8, generator=g).to(dev)):
+                (y, gx, _), (want, want_gx, _) = _bias_act_pair(x, bias, act, ct)
+                _check_bitwise(y, want, act, f"{name} every value: output", ulps)
+                _check_bitwise(gx, want_gx, act, f"{name} every value: gradient", ulps)
+            for i, shape in enumerate(BIAS_ACT_SHAPES):
+                g = torch.Generator().manual_seed(100 + i)
+                x = (torch.randn(shape, generator=g) * 2).to(dtype).contiguous(**cl).to(dev)
+                bias = torch.randn(shape[1], generator=g).to(dev)
+                ct = torch.randn(shape, generator=g).to(dtype).contiguous(**cl).to(dev)
+                (y, gx, gb), (want, want_gx, want_gb) = _bias_act_pair(x, bias, act, ct)
+                _check_bitwise(y, want, act, f"{name} maps: output", ulps)
+                _check_bitwise(gx, want_gx, act, f"{name} maps: gradient", ulps)
+                gap = _bias_grad_gap(gb, want_gb, gx)
+                assert gap <= BIAS_ACT_SUM_TOL, f"bias_act {act} {name} {shape}: bias {gap:.2e}"
+                worst = max(worst, gap)
+    for act in cuda_bias_act.ACTS:
+        (gx, gb, x2, b2, ct2), (want_gx, want_gb, want_x2, want_b2, want_ct2) = (
+            _double_backward_pair(act, dev))
+        for what, got, want in (("gradient", gx, want_gx), ("x's second", x2, want_x2),
+                                ("ct's second", ct2, want_ct2)):
+            _check_bitwise(got, want, act, f"bfloat16 double backward: {what}", ulps)
+        for what, got, want, terms in (("bias", gb, want_gb, gx), ("bias's second", b2, want_b2,
+                                                                   x2)):
+            gap = _bias_grad_gap(got, want, terms)
+            assert gap <= BIAS_ACT_SUM_TOL, f"bias_act {act} double backward: {what} {gap:.2e}"
+            worst = max(worst, gap)
+    # two runs bitwise equal under deterministic algorithms; a graph's
+    # replays bitwise equal to the eager launches
+    g = torch.Generator().manual_seed(19)
+    x = (torch.randn(64, 64, 32, 32, generator=g) * 2).bfloat16().contiguous(**cl).to(dev)
+    bias = torch.randn(64, generator=g).to(dev)
+    ct = torch.randn(x.shape, generator=g).bfloat16().contiguous(**cl).to(dev)
+
+    def pair():
+        y = cuda_bias_act.bias_act_forward_cuda(x, bias, "lrelu")
+        return [y, *cuda_bias_act.bias_act_backward_cuda(ct, y, "lrelu", True)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = [pair(), pair()]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(a, b) for a, b in zip(*runs)), "bias_act: two runs differ"
+    for got in replayed(pair):
+        assert all(torch.equal(a, b) for a, b in zip(got, runs[0])), "bias_act: a replay differs"
+    log("[bias_act] every bf16 and fp16 value and seeded maps of C = "
+        f"{sorted({s[1] for s in BIAS_ACT_SHAPES})} through the kernels against the plain ops: "
+        + ("outputs and activation gradients bitwise" if not ulps else
+           f"bitwise but for tanh, within {ulps} ulps (the card's tanhf and PyTorch's round "
+           "otherwise)")
+        + f"; the bias's gradient within {worst:.2e} of its sum of magnitudes; a double "
+        "backward through the kernels equal to the plain ops'; two backward runs "
+        f"bitwise equal under deterministic algorithms; {GRAPH_REPLAYS} graph replays equal "
+        "the eager launches")
+    return {"tanh_ulps": ulps, "bias_grad_rel_gap": worst}
+
+
+def bias_act_bytes(shape) -> tuple:
+    """Bytes the forward and backward (with the bias's gradient) must move
+    at a bf16 map of ``shape``: each input read once, each output written
+    once."""
+    n, c, h, w = shape
+    elems = n * c * h * w
+    return 4 * elems + 4 * c, 6 * elems + 4 * c
+
+
+def _bias_grad_gap(gb, want_gb, gx) -> float:
+    """The bias's gradients' largest gap, of the sum of magnitudes."""
+    scale = gx.float().abs().sum((0, 2, 3))
+    return float(((gb - want_gb).abs() / scale.clamp_min(1e-30)).max())
+
+
+def time_bias_act(dev, card: str) -> list:
+    """Phase 18's timings at BIAS_ACT_TIMED, bf16, lrelu: device ms a
+    launch (CUDA events around eager launches, each milliseconds long), its
+    share of HBM_BYTES_PER_S, and the plain ops beside it; at each shape
+    the kernels' output and activation gradient bitwise the plain ops',
+    the bias's gradient within BIAS_ACT_SUM_TOL."""
+    cl = dict(memory_format=torch.channels_last)
+    rows = []
+    for what, shape in BIAS_ACT_TIMED:
+        g = torch.Generator(dev).manual_seed(20)
+        x = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16).contiguous(**cl)
+        bias = torch.randn(shape[1], generator=g, device=dev)
+        ct = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16).contiguous(**cl)
+        calls = max(5, int(2e9 // x.numel()))
+        y = cuda_bias_act.bias_act_forward_cuda(x, bias, "lrelu")
+        gx, gb = cuda_bias_act.bias_act_backward_cuda(ct, y, "lrelu", True)
+        fwd = cuda_ms(lambda: cuda_bias_act.bias_act_forward_cuda(x, bias, "lrelu"), calls, 3)
+        bwd = cuda_ms(lambda: cuda_bias_act.bias_act_backward_cuda(ct, y, "lrelu", True),
+                      calls, 3)
+        bwd_nb = cuda_ms(lambda: cuda_bias_act.bias_act_backward_cuda(ct, y, "lrelu", False),
+                         calls, 3)
+        with torch.no_grad():
+            _check_bitwise(y, bias_act_plain(x, bias, "lrelu"), "lrelu", f"{what}: output", {})
+            plain_fwd = cuda_ms(lambda: bias_act_plain(x, bias, "lrelu"), calls, 3)
+        del y
+        xr, br = x.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        out = bias_act_plain(xr, br, "lrelu")
+        want_gx, want_gb = torch.autograd.grad(out, (xr, br), ct, retain_graph=True)
+        _check_bitwise(gx, want_gx, "lrelu", f"{what}: gradient", {})
+        gap = _bias_grad_gap(gb, want_gb, gx)
+        assert gap <= BIAS_ACT_SUM_TOL, f"bias_act at {what}: bias {gap:.2e}"
+        del gx, want_gx
+        plain_bwd = cuda_ms(lambda: torch.autograd.grad(out, (xr, br), ct, retain_graph=True),
+                            calls, 3)
+        del out, xr, br
+        b_fwd, b_bwd = bias_act_bytes(shape)
+        share = (b_fwd / (fwd * 1e-3) / HBM_BYTES_PER_S, b_bwd / (bwd * 1e-3) / HBM_BYTES_PER_S)
+        row = {"at": what, "shape": list(shape), "fwd_ms": fwd, "bwd_ms": bwd,
+               "bwd_no_bias_ms": bwd_nb, "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd,
+               "fwd_bytes": b_fwd, "bwd_bytes": b_bwd, "fwd_hbm_share": share[0],
+               "bwd_hbm_share": share[1], "bias_grad_rel_gap": gap}
+        rows.append(row)
+        log(f"[bias_act] {what} {shape} bf16 lrelu: output and activation gradient bitwise the "
+            f"plain ops', the bias's gradient within {gap:.2e}; forward {fwd:.4f} ms a launch "
+            f"({share[0]:.1%} of 3.35 TB/s on {b_fwd / 1e9:.3f} GB), backward {bwd:.4f} ms with "
+            f"the bias's gradient ({share[1]:.1%} on {b_bwd / 1e9:.3f} GB), {bwd_nb:.4f} without; "
+            f"the plain ops {plain_fwd:.4f} / {plain_bwd:.4f} ms; card: {card}")
+        del x, ct
+        torch.cuda.empty_cache()
+    top = rows[0]
+    assert min(top["fwd_hbm_share"], top["bwd_hbm_share"]) >= BIAS_ACT_MIN_SHARE, (
+        f"bias_act at {top['at']}: below {BIAS_ACT_MIN_SHARE:.0%} of 3.35 TB/s: {top}")
+    return rows
+
+
+def run_bias_act(dev, card: str) -> list:
+    """Phase 18: the kernel pair's checks, then its timings; returns the
+    kernels line's two entries (the launches of the main path's runs,
+    which ``assert_counted`` reads, filled in at the end)."""
+    checks = check_bias_act_values(dev)
+    rows = time_bias_act(dev, card)
+    top = rows[0]
+    common = {"route": "cuda", "source": "mmdgan_torch/csrc/bias_act.cu",
+              "replaces": None, "launches": 0, "library_ms": None, **checks}
+    return [dict(common, name="bias_act_fwd", ms=top["fwd_ms"], plain_ms=top["plain_fwd_ms"],
+                 bound_ms=top["fwd_bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                 timed_at=rows),
+            dict(common, name="bias_act_bwd", ms=top["bwd_ms"], plain_ms=top["plain_bwd_ms"],
+                 bound_ms=top["bwd_bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes")]
+
+
 def mesh_rank_main(argv: list) -> int:
     """``chip_smoke.py --mesh-rank KIND RANK WORLD STORE OUT CARD``: one
     rank of phase 13 (``nccl``, run by ``run_mesh_nccl``; ``gloo``, by
@@ -3786,7 +4071,7 @@ def mesh_rank_main(argv: list) -> int:
     return 0
 
 
-PHASES = tuple(range(3, 18))
+PHASES = tuple(range(3, 19))
 
 
 def parse_phases(argv: list) -> set:
@@ -3824,16 +4109,17 @@ def main() -> int:
     log(f"[device] {card} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible")
 
-    existed = _build.library_path(cuda_mmd.SOURCE).exists()
-    start = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:   # ptxas -v beside the build
-        usage = pool.submit(_build.resource_usage, cuda_mmd.SOURCE)
-        _build.build(cuda_mmd.SOURCE)
-        cuda_mmd._library()
-        log(f"[build] {cuda_mmd.SOURCE}: {time.perf_counter() - start:.2f} s "
-            f"({'loaded from build/' if existed else 'nvcc sm_90a'})")
-        for line in usage.result():
-            log(f"[build] {line}")
+    for module in (cuda_mmd, cuda_bias_act):
+        existed = _build.library_path(module.SOURCE).exists()
+        start = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:   # ptxas -v beside the build
+            usage = pool.submit(_build.resource_usage, module.SOURCE)
+            _build.build(module.SOURCE)
+            module._library()
+            log(f"[build] {module.SOURCE}: {time.perf_counter() - start:.2f} s "
+                f"({'loaded from build/' if existed else 'nvcc sm_90a'})")
+            for line in usage.result():
+                log(f"[build] {line}")
 
     seconds, launches = {}, []
 
@@ -3898,6 +4184,7 @@ def main() -> int:
         phase("17 conv and tc studies", lambda: run_conv_studies(dev, card))
         phase("17 hbm study", lambda: run_hbm_study(dev, card))
         phase("17 export study", lambda: run_export_study(dev, card))
+        fused = phase("18 bias_act", lambda: run_bias_act(dev, card))
 
         # the checks, which time nothing, in this process beside the phases'
         # subprocesses that time nothing either
@@ -3948,6 +4235,11 @@ def main() -> int:
         phase("16 rehearsal", lambda: run_rehearsal(card, tmp, pb))
     for i, kernel in enumerate(kernels):
         kernel["launches"] = sum(counted[i] for counted in launches)
+    if fused is not None:   # the main path's launches, read by assert_counted
+        for i, kernel in enumerate(fused):
+            kernel["launches"] = sum(got[i] for _, _, got in BIAS_ACT_COUNTED)
+            kernel["launches_by_run"] = {what: got[i] for what, _, got in BIAS_ACT_COUNTED}
+        kernels += fused
 
     log(f"[timing] seconds by phase: {json.dumps(seconds)}")
     log(f"[phases] ran {', '.join(map(str, sorted(chosen)))} of {PHASES[0]}-{PHASES[-1]}; "

@@ -19,6 +19,13 @@ flatten therefore orders features C-major where the JAX package orders
 them H-major; ``utils/jax_bridge.py`` permutes the dense kernels at those
 boundaries. ``crelu`` doubles the channels (axis 1 in NCHW), and the
 shape inference follows it.
+
+A ``default`` block whose kernel gives a map, with a plain bias, no BN and
+an activation the kernel pair knows (``fused_act``) runs its bias, cast
+and activation fused (``ops/cuda_bias_act.py``) where ``models/ops.py``
+``bias_act_route`` holds for the conv's output, and as separate ops
+elsewhere; while a profiler runs each such block counts its route
+(``utils/spans.py``: ``fuse.bias_act`` / ``fuse.bias_act_plain``).
 """
 
 from __future__ import annotations
@@ -29,8 +36,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mmdgan_torch.models.ops import ParametricOp
+from mmdgan_torch.models.ops import FUSABLE_ACTS, ParametricOp, bias_act_route
 from mmdgan_torch.models.scaling import ImageScaling
+from mmdgan_torch.ops import cuda_bias_act
 from mmdgan_torch.ops.distance import get_batch_squared_dist
 from mmdgan_torch.utils import spans
 
@@ -74,16 +82,13 @@ def update_layer_design(layer_design: dict) -> dict:
 
 
 ACTIVATIONS = {
-    "linear": lambda x: x,
-    "relu": F.relu,
+    **FUSABLE_ACTS,   # linear, relu, lrelu (slope 0.1), tanh
     "crelu": lambda x: torch.cat([F.relu(x), F.relu(-x)], dim=1),
     "elu": F.elu,
-    "lrelu": lambda x: F.leaky_relu(x, negative_slope=0.1),
     "selu": F.selu,
     "softplus": F.softplus,
     "softsign": F.softsign,
     "sigmoid": torch.sigmoid,
-    "tanh": torch.tanh,
 }
 
 
@@ -119,6 +124,9 @@ class Layer:
             assert self.design.get("act_nm") not in ("cbn", "CBN"), \
                 f"{self.layer_scope}: cannot use cbn for one class"
         self.ops: Dict[str, Union[ParametricOp, ImageScaling]] = {}
+        # the activation of a block whose bias, cast and activation may run
+        # fused (``_build_default``), else None
+        self.fused_act: Optional[str] = None
         self.input_shape: Optional[Tuple[int, ...]] = None
         self.output_shape: Optional[Tuple[int, ...]] = None
         if input_shape is not None:
@@ -222,6 +230,10 @@ class Layer:
             shape = self._add_bias(shape, "bias")
         if self._has_bn():
             shape = self._add_bn(shape, "BN")
+        bias = self.ops.get("bias")
+        if (len(shape) == 3 and bias is not None and bias.design["op"] == "bias"
+                and not self._has_bn() and self._act_name() in cuda_bias_act.ACTS):
+            self.fused_act = self._act_name()
         shape = activation_shape(shape, self._act_name())
         if self._scale_dir() < 0:
             shape = self._add_scaling(shape, "downsampling")
@@ -360,11 +372,17 @@ class Layer:
 
         t = self.design["type"]
         if t in ("default", "project", "c_bias"):
-            y = run("upsampling", x) if "upsampling" in self.ops else x
-            for name in ("kernel", "bias", "BN"):
-                if name in self.ops:
-                    y = run(name, y)
-            y = self._act(y)
+            y = run("kernel", run("upsampling", x) if "upsampling" in self.ops else x)
+            if self.fused_act is not None and bias_act_route(y, self.compute_dtype):
+                spans.count("fuse.bias_act")
+                y = cuda_bias_act.bias_act(y, params["bias"]["bias"], self.fused_act)
+            else:
+                if self.fused_act is not None:
+                    spans.count("fuse.bias_act_plain")
+                for name in ("bias", "BN"):
+                    if name in self.ops:
+                        y = run(name, y)
+                y = self._act(y)
             if "downsampling" in self.ops:
                 y = run("downsampling", y)
             if "project" in self.ops:

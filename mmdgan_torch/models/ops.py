@@ -46,7 +46,10 @@ BN otherwise runs PyTorch's channels_last batch-norm kernels. The float32 parame
 optimizer's slots stay contiguous (``_NhwcKernel``). Elsewhere (the CPU,
 float32 compute) the convs take contiguous NCHW tensors. Each conv counts
 its route (``utils/spans.py``: ``layout.nhwc_conv`` / ``layout.nchw_conv``)
-while a profiler runs.
+while a profiler runs. Where ``bias_act_route`` holds for a conv's output, a
+``default`` block runs its plain bias, cast and activation as one kernel
+each way (``models/layers.py``, ``ops/cuda_bias_act.py``); those plain ops
+are ``bias_act_plain`` and its backward ``bias_act_plain_backward``.
 """
 
 from __future__ import annotations
@@ -155,12 +158,60 @@ def _nhwc(x: torch.Tensor, compute_dtype: torch.dtype) -> bool:
     return nhwc_route(x, compute_dtype) and _nhwc_map(x)
 
 
+def bias_act_route(x: torch.Tensor, compute_dtype: torch.dtype) -> bool:
+    """Whether a block's bias, cast and activation run fused over its conv's
+    output ``x`` (``ops/cuda_bias_act.py``): a map in the compute dtype held
+    channels_last on the NHWC route, outside ``torch.export`` and
+    ``torch.compile``, whose programs stay plain ops."""
+    return (nhwc_route(x, compute_dtype) and x.dim() == 4 and x.dtype == compute_dtype
+            and x.is_contiguous(memory_format=torch.channels_last)
+            and not (torch.compiler.is_exporting() or torch.compiler.is_compiling()))
+
+
 def per_channel(v: torch.Tensor, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """A [C] vector broadcast against ``x`` [N, C] or [N, C, H, W]; on the
     NHWC route through ``_ChannelBroadcast``."""
     if _nhwc(x, compute_dtype):
         return _ChannelBroadcast.apply(v, x.shape)
     return v.view((-1,) + (1,) * (x.dim() - 2))
+
+
+# the activations a block's bias, cast and activation may fuse with
+# (``ops/cuda_bias_act.py`` ``ACTS``); ``models/layers.py`` ``ACTIVATIONS``
+# holds them with the rest
+FUSABLE_ACTS = {
+    "linear": lambda x: x,
+    "relu": F.relu,
+    "lrelu": lambda x: F.leaky_relu(x, negative_slope=0.1),
+    "tanh": torch.tanh,
+}
+
+
+def bias_act_plain(x: torch.Tensor, bias: torch.Tensor, act: str) -> torch.Tensor:
+    """A ``default`` block's bias, cast back and activation over a 16-bit
+    map ``x``, differentiable, as the plain route runs them: ``x + bias``
+    in float32 (``per_channel``, whose gradient is ``_ChannelSum``), the
+    cast to ``x``'s dtype, the activation in it. What the fused kernels
+    (``ops/cuda_bias_act.py``) reproduce."""
+    return FUSABLE_ACTS[act]((x + per_channel(bias, x, x.dtype)).to(x.dtype))
+
+
+def bias_act_plain_backward(g: torch.Tensor, y: torch.Tensor, act: str, bias_grad: bool
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``bias_act_plain``'s backward from the output's gradient ``g`` and
+    the output ``y``, by the plain route's ops: the activation's own
+    backward op (relu's and tanh's autograd save the output; lrelu's saves
+    the input, whose sign the output keeps), then the bias's gradient,
+    ``_ChannelSum`` of the float32 copy, or None."""
+    if act == "relu":
+        gx = torch.ops.aten.threshold_backward(g, y, 0)
+    elif act == "lrelu":
+        gx = torch.ops.aten.leaky_relu_backward(g, y, 0.1, False)
+    elif act == "tanh":
+        gx = torch.ops.aten.tanh_backward(g, y)
+    else:
+        gx = g
+    return gx, _ChannelSum.apply(gx.float()) if bias_grad else None
 
 
 def batch_moments(x: torch.Tensor, compute_dtype: torch.dtype, dp=None):

@@ -37,6 +37,7 @@ from mmdgan_torch.models.sngan import SNGan
 from mmdgan_torch.tools.profile_step import raw_activities
 from mmdgan_torch.train.state import tree_leaves, tree_map
 from mmdgan_torch.utils import spans
+from test_torch_bias_act import plain_launchers
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -93,7 +94,10 @@ LAYERS = {
 
 
 def route_on(monkeypatch):
+    """The NHWC route on the CPU; the fused bias-activation blocks it takes
+    run the plain ops in place of the kernels (``plain_launchers``)."""
     monkeypatch.setattr(ops, "nhwc_route", functools.partial(ops.nhwc_route, _any_device=True))
+    plain_launchers(monkeypatch)
 
 
 def randomized(tree, seed):
@@ -146,7 +150,10 @@ def test_route_keeps_layer_results(case, monkeypatch):
     assert case != "ps3" or layer.ops["kernel"].tc_ps3
     convs = sum(isinstance(op, ops.ParametricOp) and op.geometry is not None
                 and op.design["op"] not in ("max", "avg", "sum") for op in layer.ops.values())
-    assert convs > 0 and off == {"layout.nchw_conv": convs} and on == {"layout.nhwc_conv": convs}
+    fused = {} if layer.fused_act is None else {"fuse.bias_act": 1}
+    plain = {} if layer.fused_act is None else {"fuse.bias_act_plain": 1}
+    assert convs > 0 and off == {"layout.nchw_conv": convs, **plain}
+    assert on == {"layout.nhwc_conv": convs, **fused}
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert_close(got, want, "output")
     for i, (g, w) in enumerate(zip(grads, want_grads)):
@@ -196,6 +203,9 @@ def test_route_keeps_cifar_generator_and_discriminator(penalty, monkeypatch):
     for what, g, w, f in zip(names, got[:3] + got[3], want[:3] + want[3], exact[:3] + exact[3]):
         if w is None:
             assert g is None and f is None
+            continue
+        if g is None:   # the fused blocks pass no gradient where the plain ops pass zeros
+            assert not w.any() and not f.any(), f"{what}: none on the route"
             continue
         assert g.is_contiguous() or what == "images", f"{what} is not contiguous"
         # no further from bfloat16's result than bfloat16 is from float32

@@ -171,8 +171,10 @@ def test_device_data_calls_capture_again_after_a_drop(tmp_path):
     assert all(torch.isfinite(t.float()).all() for t in ts.tensors())
     t = spans.totals()
     counted = spans.counters()
-    # beside the drop, the convs of the warm-up and the capture, all on the NHWC route
-    assert counted.pop("graphs.drop") == 1 and list(counted) == ["layout.nhwc_conv"]
+    # beside the drop, the convs of the warm-up and the capture, all on the NHWC route,
+    # and their blocks' bias, cast and activation, all fused
+    assert counted.pop("graphs.drop") == 1
+    assert sorted(counted) == ["fuse.bias_act", "layout.nhwc_conv"], counted
     assert t["agent.call"].count == t["agent.upload"].count == 1
     assert t["graphs.warm_up"].count == t["graphs.capture"].count == 1
     assert t["graphs.replay"].count == 3

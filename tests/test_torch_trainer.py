@@ -353,9 +353,11 @@ def test_do_trace_profiles_the_last_windows(tmp_path, path, max_step, windows):
     assert names.count("agent.feed_wait") == (windows if path == "host" else 0)
     assert "agent.call" not in names      # the call began before the profiler
     assert set(names) <= events
-    # the only counter: the traced windows' convs, on the CPU's NCHW route
+    # the only counters: the traced windows' convs, on the CPU's NCHW route, and
+    # their blocks' bias, cast and activation, on the CPU's plain route
     counted = saved["counters"]
-    assert list(counted) == ["layout.nchw_conv"] and counted["layout.nchw_conv"] > 0
+    assert sorted(counted) == ["fuse.bias_act_plain", "layout.nchw_conv"], counted
+    assert counted["layout.nchw_conv"] > 0 and counted["fuse.bias_act_plain"] > 0
 
 
 def test_train_device_data_shuffled_resume_bitwise(tmp_path):
