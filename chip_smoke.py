@@ -10,14 +10,20 @@ kernels line needs it; that line sums the launches of the phases that ran,
 named on the line after the timing). The main process's log lines start
 with the seconds since it started.
 
+The steps/s of the paths that the benchmark's cells measure (the CIFAR-10
+main path, ``Agent.train_device_data``, CelebA, hd512 at M = 1 and the
+exported CIFAR-10 generator at batch 1024) are the cells'
+(``BENCHMARK.json``): the phases below check those paths and time the
+rest.
+
 Order: the parts of the chosen phases that time things run first, in
 phase order, alone on the card. Then the checks that time nothing (4, 6,
-7's and 12b's bitwise runs, 9's and 10's determinism, 10's accumulation,
-11's optimizer windows, 12's card-vs-CPU models, 16d, 17's tc layer) run in this process
-while the phases' subprocesses that time nothing run beside them: the CLI
-smokes of 8, 10 and 12, 13b and 13d (its resumed CLI started by a thread
-when the fresh one ends), 14's gloo ranks and step profiler, and 16c's
-checkpoint run. Last, 16c's rehearsal.
+7, 9's and 10's determinism, 10's accumulation, 11's optimizer windows,
+12b's bitwise runs, 12's card-vs-CPU models, 14a's checks, 16d) run in
+this process while the phases' subprocesses that time nothing run beside
+them: the CLI smokes of 8, 10 and 12, 13b and 13d (its resumed CLI
+started by a thread when the fresh one ends), 14's gloo ranks and step
+profiler, and 16c's checkpoint run. Last, 16c's rehearsal.
 
 Phases, each fatal on failure:
 
@@ -55,8 +61,9 @@ Phases, each fatal on failure:
    per step of a replayed and an eager window. The profiles are read from
    the profiler's raw results; in rep's second window those hold the
    same device activities as ``prof.events()``, name for name, with the
-   same total time. Then unprofiled windows give steps/s of both; finite metrics, parameters, SN vectors and BN
-   statistics changed;
+   same total time. After the counted windows: finite metrics, parameters,
+   SN vectors and BN statistics changed, the step count, finite generated
+   images (steps/s: the cell ``cifar10.train``);
 6. determinism, under deterministic algorithms: graphed and eager 'rmb'
    windows fed the same code batches end bitwise equal, two graphed runs
    end bitwise equal, and two successive replays draw different z;
@@ -66,7 +73,8 @@ Phases, each fatal on failure:
    Agent; under deterministic algorithms 800 straight steps against 400 +
    restore + 400, and graphed against eager (``capture=False``)
    device-data windows, shuffled and uniform, all bitwise; uniform
-   sampling;
+   sampling (steps/s: the cell ``cifar10.train``); 40 host-fed single
+   steps through ``Agent.train``, the last 5 traced;
 8. CLI: ``python -m mmdgan_torch.experiments.cifar`` host-fed on synthetic
    data and over a seeded tfrecord resident on the card, side by side;
    both exit 0 and print their throughput line;
@@ -82,12 +90,14 @@ Phases, each fatal on failure:
    'rep_gp' windows (double backward inside the graph) end bitwise equal;
 10. families, accumulation and imbalanced windows:
    - STL-10 48x48 and CelebA 64x64 at full width, rep b64 bf16, graphed
-     K=16 windows on a noise feed: steps/s over 128 timed steps, one
-     profiled replay (device busy, idle share, activities, 1 + 2
-     kernel-means launches per step), e_kxx;
+     K=16 windows on a noise feed: STL's steps/s over 128 timed steps
+     (CelebA's: the cell ``celeba64.train``), one profiled replay (device
+     busy, idle share, activities, 1 + 2 kernel-means launches per step),
+     e_kxx;
    - hd512 at full width, rep b64 bf16, ``build_device_data_step`` over a
      seeded 256 x 512 x 512 x 3 uint8 dataset on the card, at
-     micro_batches 1 and 8: steps/s, peak memory, 1 + 2 kernel-means
+     micro_batches 1 and 8: peak memory, steps/s at M = 8 over 16 timed
+     steps (at M = 1: the cell ``hd512.train``), 1 + 2 kernel-means
      launches per optimizer step in a profiled replay;
    - a narrow f32 accumulated step (M=4, rep and rmb_gp) on the card
      against the CPU; on a BN-free narrow model the accumulated step
@@ -160,12 +170,14 @@ Phases, each fatal on failure:
    ``utils/compilation_cache.py``, the sharded state of
    ``parallel/mesh.py``):
    - 14a, this process: images/s of the full-width CIFAR-10 generator
-     (bf16) in-process and exported at batch 64, 256 and 1024, and of
-     hd512's at 16 and 64 (``tools/serving_bench.py``, CUDA events), the
-     seconds to export; the artifact against in-process generation,
-     bitwise in f32 (unconditional and conditional), within 2^-7 in bf16;
-     the bf16 artifact loaded in a fresh process that imports torch alone
-     (its seconds to the first images);
+     (bf16) in-process and exported at batch 64 and 256, in-process at
+     1024 (exported: the cell ``cifar10.serve``), and of hd512's at 16
+     and 64 (``tools/serving_bench.py``, CUDA events), the seconds to
+     export; then, among the checks, the artifact against in-process
+     generation, bitwise in f32 (CIFAR-10 unconditional and
+     conditional), within 2^-7 in bf16 (CIFAR-10 and hd512 at 16), and
+     the bf16 CIFAR-10 artifact loaded in a fresh process that imports
+     torch alone;
    - 14b, a one-rank NCCL group: the CIFAR-10 rep b64 bf16 graphed window
      on a ``shard_state(fsdp=True)`` state (gathers and reduce-scatters
      captured): three profiled windows (1 + 2 kernel-means launches per
@@ -233,27 +245,7 @@ Phases, each fatal on failure:
      bitwise equal, the reference formulas within 1.1e-5 of ``gan_loss``;
    - 16f: ``tools/sweep_grid.py``, one cell of 32 graphed steps on its
      blob dataset on the card, beside the checks: finite FID, IS, losses.
-17. the five studies (``mmdgan_torch/tools``), each at a cut size that the
-   log names:
-   - 17a: ``kernel_study`` (both kernels held and timed at d = 256 in
-     phase 3): the study's gate (its scalar and gradient, kernel against
-     plain) and microbench at (64, 16), (64, 256), (256, 16), (256, 256),
-     64 chained iterations per graph (the tool's 512); the CIFAR step with
-     ``use_fused_kernel`` on and off for rep and rmb_gp at b64, 64 timed
-     steps a reading, on and off in turns twice, the counters at 1 + 2 per
-     step of each fused reading and 0 with the kernel off;
-   - 17b/17c: ``conv_study`` on ``l1_f64`` (direct, pad8), ``l2_ds``
-     (direct, s2d) and ``l7`` (direct, im2col) and ``tc_study`` on cifar's
-     ``g4``, hd128's ``g6`` and hd512's ``g8`` (every variant), NCHW and
-     ``channels_last``, bf16 b64, each variant gated in float32 with TF32
-     off first; then a ``tc`` layer built with ``TC_PS3_MIN_SIZE`` at 64
-     (ps3) against the direct route on the card, output and both
-     gradients, beside the other checks;
-   - 17d: ``hbm_study``'s synthetic, base, pregather and cursor variants on
-     cifar over 50,000 seeded rows, 128 timed steps each;
-   - 17e: ``export_study`` on cifar at b256: images/s of the in-process,
-     exported and weights-as-inputs generators.
-18. the fused bias, cast and activation of a conv block
+17. the fused bias, cast and activation of a conv block
    (``ops/cuda_bias_act.py``, ``csrc/bias_act.cu``), against the plain
    block's ops on the card (``x + bias`` in float32, the cast, the 16-bit
    activation; autograd for the gradients): for each activation (linear,
@@ -366,7 +358,7 @@ KERNEL_LOSSES = ("rep", "rep_gp", "rep_ds", "rmb", "rmb_gp", "rmb_ds")
 STATEFUL_LOSSES = ("mmd_g_mix", "sgm", "rand_g_mix", "sym_rg_mix", "instance_noise")
 PROFILED_LOSSES = KERNEL_LOSSES + ("logistic", "mmd_g", "rand_g_mix", "wasserstein")
 HD_SIZE, HD_ROWS, HD_MICRO = 512, 256, (1, 8)   # bench.py's hd512 line
-HD_CALLS = 1                        # timed windows of each hd512 run
+HD_CALLS = 1                        # timed windows of the hd512 run at M=8
 ACCUM_M = 4                         # the accumulated step of phase 10's checks
 IMBALANCED = [1, 5]
 EVAL_STEPS, EVAL_BATCHES = 64, 781  # phase 11: the reference protocol's 781 x 64 samples
@@ -690,12 +682,18 @@ def main_path_setup(dev, loss_type: str, capture: bool = True, arch: dict = None
     return model, ts, multi, batches
 
 
-def timed_windows(multi, ts, batches, measure: int = MEASURE_CALLS, **kw) -> tuple:
+def warm_windows(multi, ts, batches, **kw) -> tuple:
     """WARMUP_CALLS windows (for a fresh graphed driver: the eager warm-up,
-    then the capture), then ``measure`` timed; returns (ts, last metrics,
-    steps/s)."""
+    then the capture); returns (ts, last metrics)."""
     for _ in range(WARMUP_CALLS):
         ts, m = multi(ts, batches, **kw)
+    return ts, m
+
+
+def timed_windows(multi, ts, batches, measure: int = MEASURE_CALLS, **kw) -> tuple:
+    """``warm_windows``, then ``measure`` timed; returns (ts, last metrics,
+    steps/s)."""
+    ts, m = warm_windows(multi, ts, batches, **kw)
     torch.cuda.synchronize()
     start = time.perf_counter()
     for _ in range(measure):
@@ -717,9 +715,9 @@ def run_main_path(dev, loss_type: str, card: str) -> tuple:
     backward per step. The wrappers' counters, zeroed just before, see
     eager calls and captures: they must equal the eager windows' launches
     plus K forward and 2K backward per capture, and the fused
-    bias-activation pair's ``bias_act_per_step`` in each.
-    Timed run: WARMUP_CALLS + MEASURE_CALLS more windows of each driver,
-    unprofiled, for steps/s."""
+    bias-activation pair's ``bias_act_per_step`` in each. The counted
+    windows' last metrics are finite, and the state they leave has every
+    parameter, SN vector and BN statistic changed."""
     forward, backward = cuda_mmd.kernel_means_cuda, cuda_mmd.kernel_means_backward_cuda
     model, ts, multi, batches = main_path_setup(dev, loss_type)
     _, ts_eager, eager_multi, _ = main_path_setup(dev, loss_type, capture=False)
@@ -745,23 +743,21 @@ def run_main_path(dev, loss_type: str, card: str) -> tuple:
     counters = [forward.launches, backward.launches]
     assert_counted(f"{loss_type} main path", graphs.eager + n_eager + graphs.captures, model)
 
-    ts, m, graphed_sps = timed_windows(multi, ts, batches)
-    ts_eager, m_eager, eager_sps = timed_windows(eager_multi, ts_eager, batches)
-    for k, v in m.items():
+    m, m_eager = graphed[-1]["metrics"], eager[-1]["metrics"]
+    for k, v in list(m.items()) + list(m_eager.items()):
         assert torch.isfinite(v).all(), f"{loss_type}: non-finite {k}"
     for what, before, tree in (("parameter", params0, ts.params),
                                ("SN/BN state", state0, ts.net_state)):
         same = sum(torch.equal(a, b) for a, b in zip(before, tree_leaves(tree)))
         assert same == 0, f"{loss_type}: {same} {what} tensors unchanged"
-    assert int(ts.step) == (n_graphed + WARMUP_CALLS + MEASURE_CALLS) * SCAN_K
+    assert int(ts.step) == n_graphed * SCAN_K and int(ts_eager.step) == n_eager * SCAN_K
     images = model.generate(ts.params, ts.net_state, torch.Generator(dev).manual_seed(0), 8)
     assert images.shape == (8, 32, 32, 3) and torch.isfinite(images).all()
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     e_kxx = float(m["e_kxx"][-1])
-    log(f"[main] cifar10 sngan {loss_type} b{BATCH} bf16: graphed {graphed_sps:.2f} steps/s, "
-        f"eager {eager_sps:.2f} steps/s ({MEASURE_CALLS * SCAN_K} steps each after "
-        f"{WARMUP_CALLS * SCAN_K} warm-up, unprofiled; one CUDA graph launch per {SCAN_K} "
-        f"steps), loss_gen={float(m['loss_gen'][-1]):.5f} e_kxx={e_kxx:.5f} (eager run "
+    log(f"[main] cifar10 sngan {loss_type} b{BATCH} bf16, {n_graphed * SCAN_K} graphed and "
+        f"{n_eager * SCAN_K} eager steps (one CUDA graph launch per {SCAN_K} steps): "
+        f"loss_gen={float(m['loss_gen'][-1]):.5f} e_kxx={e_kxx:.5f} (eager run "
         f"e_kxx={float(m_eager['e_kxx'][-1]):.5f}), peak memory {peak:.0f} MiB, "
         f"{graphs.eager} eager window + {graphs.captures} capture + {graphs.replays} replays; "
         f"card: {card}")
@@ -771,8 +767,8 @@ def run_main_path(dev, loss_type: str, card: str) -> tuple:
         f"kernel_means_bwd in {(len(graphed) + len(eager)) * SCAN_K} steps; the wrappers' "
         f"counters over the same windows {counters[0]}/{counters[1]} (eager calls and one "
         "capture)")
-    _log_profile(graphed[-1], 1e3 / graphed_sps, f"{loss_type} graphed (a replay)")
-    _log_profile(eager[-1], 1e3 / eager_sps, f"{loss_type} eager")
+    _log_profile(graphed[-1], None, f"{loss_type} graphed (a replay)")
+    _log_profile(eager[-1], None, f"{loss_type} eager")
     return counted, e_kxx
 
 
@@ -895,22 +891,23 @@ def _profile(multi, ts, batches, what: str, k: int = SCAN_K, check_raw: bool = F
     """One window under torch.profiler, read by ``profile_step.window_timeline``
     (busy, union, span, activities, time and calls by kernel name, the
     kernel-means launches, the host's ``nccl:`` events) and its traced
-    wall time per step. ``check_raw``: the device activities that
-    ``window_timeline`` reads from the profiler's raw results must be those
-    of ``prof.events()``, name for name, with the same total time."""
+    wall time per step, and the window's metrics. ``check_raw``: the
+    device activities that ``window_timeline`` reads from the profiler's
+    raw results must be those of ``prof.events()``, name for name, with the
+    same total time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        multi(ts, batches)
+        _, metrics = multi(ts, batches)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     try:
         out = window_timeline(prof, k, torch.device("cuda"), tuple(KERNEL_EVENTS))
     except RuntimeError as e:
         raise AssertionError(f"{e} in the {what}") from None
-    out["wall"] = wall_ms / k
+    out["wall"], out["metrics"] = wall_ms / k, metrics
     if check_raw:
         start = time.perf_counter()
         same = check_raw_activities(prof, torch.autograd.DeviceType.CUDA)
@@ -920,16 +917,17 @@ def _profile(multi, ts, batches, what: str, k: int = SCAN_K, check_raw: bool = F
     return out
 
 
-def _log_profile(prof: dict, step_ms: float, what: str) -> None:
+def _log_profile(prof: dict, step_ms: Optional[float], what: str) -> None:
     """The device timeline of one profiled window: busy time, the idle
-    share inside the kernels' span and against the untraced step time
-    ``step_ms`` (the traced wall time includes the profiler's own cost),
-    the kernel-means kernels' device time, and the kernels taking most
-    time."""
+    share inside the kernels' span and, where the path was timed, against
+    the untraced step time ``step_ms`` (the traced wall time includes the
+    profiler's own cost), the kernel-means kernels' device time, and the
+    kernels taking most time."""
+    untraced = ("" if step_ms is None else f"; against the untraced step of {step_ms:.4f} ms "
+                f"idle {100 * (1 - prof['union'] / step_ms):.1f}%")
     log(f"[profile] {what}: device busy {prof['busy']:.4f} ms/step (union of kernel intervals "
         f"{prof['union']:.4f}) over a span of {prof['span']:.4f} ms/step from first kernel to "
-        f"last: idle {100 * (1 - prof['union'] / prof['span']):.1f}% of the span; against the "
-        f"untraced step of {step_ms:.4f} ms idle {100 * (1 - prof['union'] / step_ms):.1f}%; "
+        f"last: idle {100 * (1 - prof['union'] / prof['span']):.1f}% of the span{untraced}; "
         f"traced wall {prof['wall']:.4f} ms/step; {prof['activities']:.0f} device activities "
         "per step")
     for kernel in KERNEL_EVENTS:
@@ -944,19 +942,15 @@ def run_agent(dev, out_dir: str, name: str, data: dict, max_step: int, sampling:
               load_ckpt: bool = False, do_save: bool = True, seed: int = 0) -> tuple:
     """``Agent.train_device_data`` on the full-width rep model at b64
     bf16, K=16, from the state of seed ``seed`` (restored first when
-    ``load_ckpt``); returns (ts, steps/s)."""
+    ``load_ckpt``); returns the state."""
     model = SNGan(cifar_architecture(), loss_type="rep")
     opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
     ts = init_train_state(model, seed, opt_d, opt_g)
     agent = Agent(name, "t", output_dir=out_dir, load_ckpt=load_ckpt, do_save=do_save,
                   query_step=400, print_loss=False, use_tensorboard=False)
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    ts = agent.train_device_data(model, opt_d, opt_g, ts, data, max_step=max_step,
-                                 step_per_epoch=AGENT_ROWS // BATCH, batch_size=BATCH,
-                                 steps_per_call=SCAN_K, sampling=sampling)
-    torch.cuda.synchronize()
-    return ts, max_step / (time.perf_counter() - start)
+    return agent.train_device_data(model, opt_d, opt_g, ts, data, max_step=max_step,
+                                   step_per_epoch=AGENT_ROWS // BATCH, batch_size=BATCH,
+                                   steps_per_call=SCAN_K, sampling=sampling)
 
 
 def trainer_dataset(dev) -> tuple:
@@ -979,27 +973,25 @@ def check_trainer(dev, data: dict, data_x) -> None:
     mib = data["x"].nbytes / 2**20
     with tempfile.TemporaryDirectory() as out:
         torch.cuda.reset_peak_memory_stats(dev)
-        ts, sps = run_agent(dev, out, "long", data, 1600, "shuffled_epochs")
+        ts = run_agent(dev, out, "long", data, 1600, "shuffled_epochs")
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
         assert int(ts.step) == 1600 and all(torch.isfinite(t.float()).all() for t in ts.tensors())
-        ts2, sps2 = run_agent(dev, out, "long", data, 160, "shuffled_epochs", load_ckpt=True,
-                              seed=5)
+        ts2 = run_agent(dev, out, "long", data, 160, "shuffled_epochs", load_ckpt=True, seed=5)
         assert int(ts2.step) == 1760
         log(f"[trainer] Agent.train_device_data rep b{BATCH} bf16 K={SCAN_K}, shuffled epochs "
-            f"over {AGENT_ROWS} rows ({mib:.1f} MiB uint8 on the card): 1600 steps at "
-            f"{sps:.2f} steps/s across epoch boundaries 781 and 1562, checkpoint at 1600; a new "
-            f"Agent restored it and ran to step 1760 at {sps2:.2f} steps/s; peak memory "
-            f"{peak:.0f} MiB")
+            f"over {AGENT_ROWS} rows ({mib:.1f} MiB uint8 on the card): 1600 steps across epoch "
+            f"boundaries 781 and 1562, checkpoint at 1600; a new Agent restored it and ran to "
+            f"step 1760; peak memory {peak:.0f} MiB")
 
         flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            straight, _ = run_agent(dev, out, "straight", data, 800, "shuffled_epochs",
-                                    do_save=False)
+            straight = run_agent(dev, out, "straight", data, 800, "shuffled_epochs",
+                                 do_save=False)
             run_agent(dev, out, "halves", data, 400, "shuffled_epochs")
-            resumed, _ = run_agent(dev, out, "halves", data, 400, "shuffled_epochs",
-                                   load_ckpt=True, do_save=False, seed=7)
+            resumed = run_agent(dev, out, "halves", data, 400, "shuffled_epochs",
+                                load_ckpt=True, do_save=False, seed=7)
             torch.cuda.synchronize()
             windows = {sampling: _device_data_ends(dev, data_x, sampling)
                        for sampling in ("shuffled_epochs", "uniform")}
@@ -1014,15 +1006,13 @@ def check_trainer(dev, data: dict, data_x) -> None:
             differ = _differ(graphed, eager)
             assert differ == 0, (f"trainer: {differ} of {len(eager)} tensors differ, graphed vs "
                                  f"eager {sampling} device-data windows")
-        ts, sps = run_agent(dev, out, "uniform", data, 320, "uniform", do_save=False)
+        ts = run_agent(dev, out, "uniform", data, 320, "uniform", do_save=False)
         assert int(ts.step) == 320 and all(torch.isfinite(t.float()).all() for t in ts.tensors())
         log(f"[trainer] under deterministic algorithms 800 straight steps equal 400 + restore + "
             f"400 bitwise (across the boundary at 781); graphed and eager (capture=False) "
             f"device-data windows end bitwise equal, shuffled epochs and uniform "
             f"({DATA_WINDOWS * SCAN_K} steps each, z and indices drawn in the windows, "
-            f"{len(windows['uniform'][0])} tensors); uniform sampling 320 steps at {sps:.2f} "
-            "steps/s (each Agent call's steps/s includes the upload, the eager first window, "
-            "the capture and the final checkpoint)")
+            f"{len(windows['uniform'][0])} tensors); uniform sampling 320 steps")
         model = SNGan(cifar_architecture(), loss_type="rep")
         opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
         ts = init_train_state(model, 0, opt_d, opt_g)
@@ -1035,22 +1025,6 @@ def check_trainer(dev, data: dict, data_x) -> None:
         assert int(ts.step) == 40 and os.path.getsize(trace) > 0
     log("[trainer] Agent.train, host-fed single steps through the prefetcher: 40 steps, the "
         "last 5 traced by torch.profiler into trace.json")
-
-
-def trainer_rates(dev, data: dict, data_x) -> None:
-    """Phase 7's measurement: the steady-state steps/s of graphed
-    device-data windows over ``trainer_dataset``, both samplings."""
-    rates = {}
-    for sampling in ("shuffled_epochs", "uniform"):
-        model = SNGan(cifar_architecture(), loss_type="rep")
-        opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
-        ts = init_train_state(model, 0, opt_d, opt_g)
-        fn = build_device_data_step(model, opt_d, opt_g, SCAN_K, BATCH, sampling=sampling)
-        rng = torch.Generator(dev).manual_seed(1)
-        _, _, rates[sampling] = timed_windows(lambda ts, _: fn(ts, data_x, None, rng), ts, None)
-    log(f"[trainer] graphed device-data windows, steady state ({MEASURE_CALLS * SCAN_K} steps "
-        f"after {WARMUP_CALLS * SCAN_K}): shuffled epochs {rates['shuffled_epochs']:.2f} steps/s, "
-        f"uniform {rates['uniform']:.2f} steps/s")
 
 
 def _device_data_ends(dev, data_x, sampling: str) -> tuple:
@@ -1291,18 +1265,24 @@ def assert_counted(what: str, windows: int, model: Optional[SNGan] = None,
         "(one forward per fused block, two backwards per D block, one per G block)")
 
 
-def run_family(dev, name: str, arch: dict, card: str) -> list:
+def run_family(dev, name: str, arch: dict, card: str, timed: bool) -> list:
     """Phase 10: one family at full width, rep b64 bf16, graphed K=16
     windows on a noise feed from the state of seed 0: the eager warm-up,
-    the capture, MEASURE_CALLS timed replays (128 steps); the wrappers'
-    counters, zeroed before, show 1 forward and 2 backward launches per
-    step of the eager window and of the capture; then one replay under
-    the profiler, which must count 1 + 2 per step. Returns the profiler's
-    counts."""
+    the capture and, if ``timed`` (a family no benchmark cell measures),
+    MEASURE_CALLS timed replays (128 steps); the wrappers' counters,
+    zeroed before, show 1 forward and 2 backward launches per step of the
+    eager window and of the capture; then one replay under the profiler,
+    which must count 1 + 2 per step. Returns the profiler's counts."""
     model, ts, multi, batches = main_path_setup(dev, "rep", arch=arch)
     n_params = sum(p.numel() for p in tree_leaves(ts.params))
     reset_counters()
-    ts, m, sps = timed_windows(multi, ts, batches)
+    step_ms, rate = None, ""
+    if timed:
+        ts, m, sps = timed_windows(multi, ts, batches)
+        step_ms, rate = 1e3 / sps, (f"graphed {sps:.2f} steps/s ({MEASURE_CALLS * SCAN_K} steps "
+                                    f"after {WARMUP_CALLS * SCAN_K} warm-up, unprofiled), ")
+    else:
+        ts, m = warm_windows(multi, ts, batches)
     assert_counted(name, multi.graphs.eager + multi.graphs.captures, model)
     prof = _profiled_window(multi, ts, batches, f"{name} replayed window")
     bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
@@ -1310,15 +1290,14 @@ def run_family(dev, name: str, arch: dict, card: str) -> list:
     c, h, w = arch["input"][0]
     images = model.generate(ts.params, ts.net_state, torch.Generator(dev).manual_seed(0), 4)
     assert images.shape == (4, h, w, c) and torch.isfinite(images).all()
-    log(f"[families] {name} {h}x{w} sngan rep b{BATCH} bf16 ({n_params} parameters): graphed "
-        f"{sps:.2f} steps/s ({MEASURE_CALLS * SCAN_K} steps after {WARMUP_CALLS * SCAN_K} "
-        f"warm-up, unprofiled), loss_gen={float(m['loss_gen'][-1]):.5f} "
+    log(f"[families] {name} {h}x{w} sngan rep b{BATCH} bf16 ({n_params} parameters): "
+        f"{rate}loss_gen={float(m['loss_gen'][-1]):.5f} "
         f"e_kxx={float(m['e_kxx'][-1]):.5f}; a replay: device busy {prof['union']:.4f} ms/step, "
         f"idle {100 * (1 - prof['union'] / prof['span']):.1f}% of the span, "
         f"{prof['activities']:.0f} activities/step, kernel means "
         f"{prof['kernel_means_fwd'] // SCAN_K}+{prof['kernel_means_bwd'] // SCAN_K} per step; "
         f"card: {card}")
-    _log_profile(prof, 1e3 / sps, f"{name} graphed (a replay)")
+    _log_profile(prof, step_ms, f"{name} graphed (a replay)")
     return [prof["kernel_means_fwd"], prof["kernel_means_bwd"]]
 
 
@@ -1327,12 +1306,14 @@ def run_hd512(dev, card: str) -> list:
     ``build_device_data_step`` (uniform) over a seeded 256 x 512 x 512 x 3
     uint8 dataset on the card (``bench.py:157-205``), at micro_batches 1
     and 8, each from the state of seed 0 through graphed K=16 windows: the
-    eager warm-up, the capture, HD_CALLS timed replays, then one profiled
-    replay that must count 1 forward and 2 backward kernel-means launches
-    per optimizer step. The peak memory of each run is read after the
-    previous run is freed and the peak reset, beside what was allocated
-    when the run began (the dataset, what earlier phases hold). A run at
-    M=1 that does not fit the card is reported, and M=8 runs alone.
+    eager warm-up, the capture, at M=8 HD_CALLS timed replays (M=1's
+    steps/s is the cell ``hd512.train``'s, and no cell runs M=8), then one
+    profiled replay that must count 1 forward and 2 backward kernel-means
+    launches per optimizer step. The
+    peak memory of each run is read after the previous run is freed and
+    the peak reset, beside what was allocated when the run began (the
+    dataset, what earlier phases hold). A run at M=1 that does not fit the
+    card is reported, and M=8 runs alone.
     Returns the profiler's counts."""
     data_x = torch.tensor(np.random.RandomState(0).randint(
         0, 256, (HD_ROWS, HD_SIZE, HD_SIZE, 3), np.uint8), device=dev)
@@ -1350,7 +1331,10 @@ def run_hd512(dev, card: str) -> list:
         drive = lambda ts, _: fn(ts, data_x, None, rng)   # noqa: E731
         reset_counters()
         try:
-            ts, m, sps = timed_windows(drive, ts, None, measure=HD_CALLS)
+            if micro == 1:
+                (ts, m), sps = warm_windows(drive, ts, None), None
+            else:
+                ts, m, sps = timed_windows(drive, ts, None, measure=HD_CALLS)
         except torch.cuda.OutOfMemoryError as e:
             if micro != 1:
                 raise
@@ -1366,8 +1350,10 @@ def run_hd512(dev, card: str) -> list:
             f"hd512 M={micro}: non-finite {bad}")
         log(f"[hd512] hd_architecture(512) rep b{BATCH} bf16, device-resident "
             f"{HD_ROWS}x{HD_SIZE}x{HD_SIZE}x3 uint8 ({data_x.numel() / 2**20:.0f} MiB), "
-            f"micro_batches={micro}: graphed {sps:.3f} steps/s ({HD_CALLS * SCAN_K} steps after "
-            f"{WARMUP_CALLS * SCAN_K} warm-up, unprofiled), peak memory {peak:.2f} GiB "
+            f"micro_batches={micro}: "
+            + ("" if sps is None else f"graphed {sps:.3f} steps/s ({HD_CALLS * SCAN_K} steps "
+               f"after {WARMUP_CALLS * SCAN_K} warm-up, unprofiled), ")
+            + f"peak memory {peak:.2f} GiB "
             f"(torch.cuda.max_memory_allocated; {peak - before:.2f} GiB above the "
             f"{before:.2f} GiB allocated when the run began, the dataset among them), "
             f"loss_gen={float(m['loss_gen'][-1]):.5f} "
@@ -1376,7 +1362,7 @@ def run_hd512(dev, card: str) -> list:
             f"{prof['activities']:.0f} activities/step, kernel means "
             f"{prof['kernel_means_fwd'] // SCAN_K}+{prof['kernel_means_bwd'] // SCAN_K} per "
             f"optimizer step; card: {card}")
-        _log_profile(prof, 1e3 / sps, f"hd512 M={micro} graphed (a replay)")
+        _log_profile(prof, sps and 1e3 / sps, f"hd512 M={micro} graphed (a replay)")
         del ts, m, fn, drive
     return launches
 
@@ -2586,32 +2572,24 @@ def start_mesh_smokes(card: str, tmp: str):
     return finish
 
 
-SERVE_BATCHES, SERVE_HD_BATCHES = (64, 256, 1024), (16, 64)
+SERVE_BATCHES, SERVE_HD_BATCHES = (64, 256), (16, 64)
 SERVE_CALLS, SERVE_HD_CALLS = 64, 8
+SERVE_IN_PROCESS = 1024             # CIFAR-10's in-process generator alone
 SERVE_BF16_ATOL = 2.0 ** -7         # one bf16 step at 1.0; images lie in [-1, 1]
 FSDP_STEPS = 3                      # 14c/14d narrow steps, sharded ranks against one device
 FSDP_MIN_SIZE = 64                  # the narrow models' split: every leaf of 64 elements up
 
 LOAD_SCRIPT = """
-import json, sys, time
+import sys
 import numpy as np
 import torch
 from torch.export.passes import move_to_device_pass
-z = torch.tensor(np.load(sys.argv[2]), device="cuda")     # CUDA up before the clock starts
-start = time.perf_counter()
+z = torch.tensor(np.load(sys.argv[2]), device="cuda")
 module = move_to_device_pass(torch.export.load(sys.argv[1]), torch.device("cuda", 0)).module()
-loaded = time.perf_counter()
 with torch.no_grad():
     out = module(z)
-torch.cuda.synchronize()
-first = time.perf_counter()
-with torch.no_grad():
-    module(z)
-torch.cuda.synchronize()
 assert not [m for m in sys.modules if m.startswith("mmdgan")]
 np.save(sys.argv[3], out.float().cpu().numpy())
-print(json.dumps({"load_s": loaded - start, "first_call_s": first - loaded,
-                  "second_call_s": time.perf_counter() - first}))
 """
 
 CACHE_SCRIPT = """
@@ -2635,20 +2613,15 @@ def _json_tail(text: str) -> dict:
     return json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
 
 
-def check_serving(dev, card: str, tmp: str) -> None:
-    """Phase 14a: the serving path on the card.
-    - ``serving_bench.bench``: images/s of the full-width CIFAR-10
-      generator (seed 0, bf16) in-process and exported, at SERVE_BATCHES,
-      and of hd512's at SERVE_HD_BATCHES, CUDA events over the calls;
-      the seconds to export each;
-    - the exported artifact against in-process generation on the card:
-      bitwise in float32 (the unconditional and the conditional CIFAR-10
-      generators), within SERVE_BF16_ATOL in bf16;
-    - the bf16 b64 artifact loaded in a fresh process that imports torch
-      alone: the seconds from ``torch.export.load`` to the first images,
-      which equal the in-process ones within the bf16 bound."""
+def serving_rates(dev, card: str) -> None:
+    """Phase 14a's timed part, alone on the card (``tools/serving_bench.py``,
+    CUDA events over the calls): images/s of the full-width CIFAR-10
+    generator (seed 0, bf16) in-process and exported, in turns, at
+    SERVE_BATCHES, and of hd512's at SERVE_HD_BATCHES, with the seconds
+    to export each; CIFAR-10's in-process generator alone at
+    SERVE_IN_PROCESS (the exported one there is the cell
+    ``cifar10.serve``'s)."""
     from mmdgan_torch.tools import serving_bench
-    from mmdgan_torch.utils.export import export_generator, load_exported
 
     records = (serving_bench.bench("cifar", list(SERVE_BATCHES), dev, calls=SERVE_CALLS)
                + serving_bench.bench("hd512", list(SERVE_HD_BATCHES), dev,
@@ -2661,18 +2634,40 @@ def check_serving(dev, card: str, tmp: str) -> None:
             f"{r['turns']['model'][0]:.1f}, {r['turns']['export'][0]:.1f}, "
             f"{r['turns']['export'][1]:.1f}, {r['turns']['model'][1]:.1f}); export "
             f"{r['export_s']:.2f} s; card: {card}")
-    z = torch.randn(BATCH, 128, generator=torch.Generator().manual_seed(5))
+    model = SNGan(cifar_architecture(), loss_type="rep", compute_dtype=torch.bfloat16)
+    params, state, _ = model.init(0)
+    z = torch.randn(SERVE_IN_PROCESS, model.code_size,
+                    generator=torch.Generator().manual_seed(0)).to(dev)
+    ips = serving_bench.images_per_sec(
+        lambda z: model.generate(params, state, code_batch={"x": z}), z, SERVE_CALLS)
+    log(f"[serving] cifar b{SERVE_IN_PROCESS} bf16: in-process {ips:.1f} images/s (exported: "
+        f"the cell cifar10.serve); card: {card}")
+
+
+def check_serving(dev, card: str, tmp: str) -> None:
+    """Phase 14a's checks: the serving path on the card.
+    - the exported artifact against in-process generation on the card:
+      bitwise in float32 (the unconditional and the conditional CIFAR-10
+      generators), within SERVE_BF16_ATOL in bf16 (CIFAR-10's, and hd512's
+      at its first SERVE_HD_BATCHES);
+    - the bf16 CIFAR-10 artifact loaded in a fresh process that imports
+      torch alone: its images equal the in-process ones within the bf16
+      bound."""
+    from mmdgan_torch.utils.export import export_generator, load_exported
+
     errs = {}
-    for name, dtype, num_class in (("f32", torch.float32, 0), ("f32 conditional",
-                                                                torch.float32, NUM_CLASS),
-                                   ("bf16", torch.bfloat16, 0)):
-        model = SNGan(cifar_architecture(conditional=num_class >= 2), num_class=num_class,
-                      loss_type="rep", compute_dtype=dtype)
+    for name, arch, dtype, num_class, b in (
+            ("f32", cifar_architecture(), torch.float32, 0, BATCH),
+            ("f32 conditional", cifar_architecture(conditional=True), torch.float32, NUM_CLASS,
+             BATCH),
+            ("bf16", cifar_architecture(), torch.bfloat16, 0, BATCH),
+            ("hd512 bf16", hd_architecture(HD_SIZE), torch.bfloat16, 0, SERVE_HD_BATCHES[0])):
+        model = SNGan(arch, num_class=num_class, loss_type="rep", compute_dtype=dtype)
         params, state, _ = model.init(0)
-        y = (torch.arange(BATCH).remainder(NUM_CLASS).reshape(BATCH, 1).int()
-             if num_class else None)
-        path = os.path.join(tmp, f"serve_{dtype}_{num_class}.pt2")
-        export_generator(model, params, state, BATCH, path)
+        z = torch.randn(b, model.code_size, generator=torch.Generator().manual_seed(5))
+        y = (torch.arange(b).remainder(NUM_CLASS).reshape(b, 1).int() if num_class else None)
+        path = os.path.join(tmp, f"serve_{name.replace(' ', '_')}.pt2")
+        export_generator(model, params, state, b, path)
         fn = load_exported(path)
         zz = z.to(dev)
         got = fn(zz) if y is None else fn(zz, y)
@@ -2680,25 +2675,23 @@ def check_serving(dev, card: str, tmp: str) -> None:
         errs[name] = float((got - want).abs().max())
         if dtype == torch.float32:
             assert torch.equal(got, want), f"{name}: the artifact differs by {errs[name]:.3e}"
-        else:
-            assert errs[name] <= SERVE_BF16_ATOL, (name, errs[name])
+            continue
+        assert errs[name] <= SERVE_BF16_ATOL, (name, errs[name])
+        if name == "bf16":
             np.save(os.path.join(tmp, "z.npy"), z.numpy())
             proc = subprocess.run([sys.executable, "-c", LOAD_SCRIPT, path,
                                    os.path.join(tmp, "z.npy"), os.path.join(tmp, "out.npy")],
                                   capture_output=True, text=True, timeout=300, cwd=tmp)
             assert proc.returncode == 0, proc.stderr[-3000:]
-            fresh_times = _json_tail(proc.stdout)
             fresh = float(np.abs(np.load(os.path.join(tmp, "out.npy"))
                                  - want.float().cpu().numpy()).max())
             assert fresh <= SERVE_BF16_ATOL, fresh
     log(f"[serving] the artifact against in-process generation on the card, full-width "
         f"CIFAR-10 b{BATCH}: f32 bitwise ({errs['f32']:.1e}), f32 conditional bitwise "
-        f"({errs['f32 conditional']:.1e}), bf16 max |diff| {errs['bf16']:.3e} (bound "
-        f"{SERVE_BF16_ATOL}); the bf16 artifact in a fresh process importing torch alone, "
-        f"CUDA up first: torch.export.load and the move to the card "
-        f"{fresh_times['load_s']:.3f} s, the first call {fresh_times['first_call_s']:.3f} s, "
-        f"the second {fresh_times['second_call_s']:.4f} s, max |diff| {fresh:.3e}; card: "
-        f"{card}")
+        f"({errs['f32 conditional']:.1e}), bf16 max |diff| {errs['bf16']:.3e}; hd512 "
+        f"b{SERVE_HD_BATCHES[0]} bf16 max |diff| {errs['hd512 bf16']:.3e} (bound "
+        f"{SERVE_BF16_ATOL}); the bf16 CIFAR-10 artifact in a fresh process importing torch "
+        f"alone: max |diff| {fresh:.3e}; card: {card}")
 
 
 def _cache_process(tmp: str, kind: str) -> subprocess.Popen:
@@ -2921,7 +2914,7 @@ def fsdp_nccl_rank(store: str, out: str, card: str) -> None:
 
 
 def run_serving(dev, card: str) -> None:
-    """Phase 14a, in this process (it times things)."""
+    """Phase 14a's checks, in this process."""
     with tempfile.TemporaryDirectory() as tmp:
         check_serving(dev, card, tmp)
 
@@ -3658,173 +3651,7 @@ def check_imagenet_prep(dev, card: str, tmp: str, pb: str) -> None:
         f"largest difference {worst:.3f} of the tolerance); card: {card}")
 
 
-# ----------------------------------------------------------------------
-# phase 17: the five studies that asked the TPU's questions, asked of the
-# H100 (kernel, conv, tc, device-data sampling, export), at a cut size
-# ----------------------------------------------------------------------
-
-STUDY_ITERS = 64                    # 17a: chained iterations per graph (the tool's 512)
-STUDY_REPEAT = 3                    # 17a-17c: timed replays per reading (the tools' 5, 7, 7)
-STUDY_STEPS = 64                    # 17a: timed steps per step A/B reading (the tool's 512)
-STUDY_AB = ("rep", "rmb_gp")        # 17a: the step A/B at b64, on/off in turns twice
-CONV_CUT = {"l1_f64": ("direct", "pad8"), "l2_ds": ("direct", "s2d"), "l7": ("direct", "im2col")}
-TC_CUT = ("g4 16x16 128->64", "g6", "g8")
-STUDY_INNER = (20, 5)               # 17b/17c: calls per graph below / at 128x128 (the tools' 200, 25)
-HBM_CUT, HBM_STEPS = ("synthetic", "base", "pregather", "cursor"), 128   # 17d (the tool's 512)
-EXPORT_BATCH, EXPORT_CALLS = 256, 16    # 17e: cifar (the tool's default celeba, lsun at b1024, 64)
-
-
-def run_kernel_study(dev, card: str) -> list:
-    """17a: ``tools/kernel_study.py`` at a cut size (phase 3 holds and times
-    both kernels at d = 256): the study's gate (its scalar and gradient,
-    kernel against plain) and its microbench at all four (B, d),
-    STUDY_ITERS chained iterations per graph; then the CIFAR step with
-    ``use_fused_kernel`` on and off for STUDY_AB at b64, STUDY_STEPS timed
-    steps, in turns twice. The wrappers' counters, zeroed after the gates,
-    count n + 1 launches per timed capture (its eager warm-up and its n
-    captured iterations) and 1 + 2 per step of each fused reading's eager
-    window and capture, none with the kernel off. Returns those launches."""
-    from mmdgan_torch.tools import kernel_study as study
-
-    rows, launches = [], [0, 0]
-    for b, d in study.MICRO_SHAPES:
-        err = study.gate(b, d, dev)
-        reset_counters()
-        row = study.micro_row(b, d, STUDY_ITERS, dev, STUDY_REPEAT)
-        n = STUDY_ITERS + 1
-        assert counters() == [2 * n, n], f"17a ({b}, {d}): counters {counters()}"
-        launches = [a + c for a, c in zip(launches, counters())]
-        rows.append(row)
-        log(f"[kernel_study] ({b}, {d}): gate passed (gradient max |err| {err:.3e}); "
-            f"bound {row['bound_by']}")
-    for line in study.MICRO_TABLE.splitlines() + [study.format_micro(r) for r in rows]:
-        log(f"[kernel_study] {line}")
-    for loss in STUDY_AB:
-        reset_counters()
-        readings = study.step_readings(loss, BATCH, STUDY_STEPS, 2, dev)
-        # each fused reading's eager window and capture; none with the kernel off
-        want = [n * SCAN_K * 2 * len(readings[True]) for n in KERNEL_EVENTS.values()]
-        assert counters() == want, f"17a {loss}: counters {counters()}, want {want}"
-        launches = [a + c for a, c in zip(launches, counters())]
-        on, off = readings[True], readings[False]
-        log(f"[kernel_study] {loss} b{BATCH}, {STUDY_STEPS} timed steps a reading, in turns "
-            f"(on, off, off, on): kernel on {', '.join(f'{v:.2f}' for v in on)}, off "
-            f"{', '.join(f'{v:.2f}' for v in off)} steps/s; on/off "
-            f"{100 * (np.mean(on) / np.mean(off) - 1):+.2f}%")
-    log(f"[kernel_study] kernel means {launches[0]} + {launches[1]} launches (counters: "
-        f"captures with their warm-ups, the fused readings' eager windows and captures); "
-        f"card: {card}")
-    return launches
-
-
-def run_conv_studies(dev, card: str) -> None:
-    """17b/17c: ``tools/conv_study.py`` on CONV_CUT's shapes and variants and
-    ``tools/tc_study.py`` on TC_CUT's shapes (every variant), in NCHW and
-    ``channels_last``, bf16, batch 64, each variant gated first in float32
-    inside ``tf32_off`` (cuDNN's and cuBLAS's TF32 both off; the tools'
-    own gates switch both off and restore them too) and then timed with the
-    flags as the train step has them, STUDY_INNER calls per graph."""
-    from mmdgan_torch.tools import conv_study, tc_study
-
-    for name, keep in CONV_CUT.items():
-        shape = next(sh for sh in conv_study.SHAPES if sh[0].startswith(name))
-        cin, k, s = shape[3], shape[5], shape[6]
-        x, w = conv_study.shape_inputs(shape, dev, BATCH)
-        fns = {v: conv_study.variants(cin, k, s)[v] for v in keep}
-        errs = tf32_off(lambda: conv_study.gate(fns, (x, w, s), conv_study.GATE, shape[0]))
-        res = conv_study.time_shape(shape, fns, x, w, STUDY_INNER[0], STUDY_REPEAT)
-        for layout in conv_study.LAYOUTS:
-            for row in conv_study.table_rows(shape[0], res[layout]):
-                log(f"[conv_study] {layout} {row}")
-        d_cl, d_nchw = res["channels_last"]["direct"], res["nchw"]["direct"]
-        log(f"[conv_study] {shape[0]}: gate {json.dumps(errs)} (relative, f32, TF32 off); "
-            f"direct channels_last vs NCHW fwd x{d_nchw['fwd_us'] / d_cl['fwd_us']:.3f}, "
-            f"fwd+bwd x{d_nchw['fwdbwd_us'] / d_cl['fwdbwd_us']:.3f}")
-    for shape in conv_study.select(tc_study.SHAPES, ",".join(TC_CUT)):
-        x, w = tc_study.shape_inputs(shape, dev, BATCH)
-        errs = tf32_off(lambda: conv_study.gate(tc_study.GATED, (x, w), tc_study.GATE, shape[0]))
-        with contextlib.redirect_stdout(io.StringIO()) as out:
-            res = tc_study.time_shape(shape, x, w, STUDY_INNER[shape[1] >= 128], STUDY_REPEAT)
-        for line in out.getvalue().splitlines():
-            log(f"[tc_study] {line}")
-        d_cl, d_nchw = res["channels_last"]["direct"], res["nchw"]["direct"]
-        log(f"[tc_study] {shape[0]}: gate {json.dumps(errs)} (relative, f32, TF32 off); direct "
-            f"channels_last vs NCHW fwd x{d_nchw['fwd_us'] / d_cl['fwd_us']:.3f}, fwd+bwd "
-            f"x{d_nchw['fwdbwd_us'] / d_cl['fwdbwd_us']:.3f}; ps3 vs direct (NCHW) fwd "
-            f"x{res['nchw']['ps3']['fwd_speedup']:.3f}, fwd+bwd "
-            f"x{res['nchw']['ps3']['fwdbwd_speedup']:.3f}")
-    log(f"[conv_study] {len(CONV_CUT)} conv and {len(TC_CUT)} tc shapes, bf16 b{BATCH}, "
-        f"{STUDY_INNER} calls per graph, median of {STUDY_REPEAT} replays; card: {card}")
-
-
-def run_hbm_study(dev, card: str) -> None:
-    """17d: ``tools/hbm_study.py``'s HBM_CUT variants on cifar at full width,
-    b64 K=16 over its 50,000 seeded rows, HBM_STEPS timed steps each."""
-    from mmdgan_torch.tools import hbm_study
-
-    rates = {}
-    for v in HBM_CUT:
-        gc.collect()
-        torch.cuda.empty_cache()
-        call, ts = hbm_study.make_variant(v, "cifar", dev)
-        rates[v] = hbm_study.measure(call, ts, HBM_STEPS)
-        del call, ts
-    line = {"arch": "cifar", "steps": HBM_STEPS, "steps_per_sec": rates}
-    log(f"[hbm_study] {json.dumps(line)}; cursor / base {rates['cursor'] / rates['base']:.4f}, "
-        f"base / synthetic {rates['base'] / rates['synthetic']:.4f}; card: {card}")
-
-
-def run_export_study(dev, card: str) -> None:
-    """17e: ``tools/export_study.py`` on cifar at EXPORT_BATCH,
-    EXPORT_CALLS calls per surface."""
-    from mmdgan_torch.tools import export_study
-
-    line = export_study.study("cifar", EXPORT_BATCH, dev, EXPORT_CALLS)
-    assert set(line["img_per_sec"]) == {"model", "exp", "exp_args"}, line
-    log(f"[export_study] {json.dumps(line)}; card: {card}")
-
-
-def check_tc_gate_on_card(dev) -> None:
-    """17c's check: a ``tc`` layer (16 -> 32 channels at 64x64, spectral
-    norm) built with ``TC_PS3_MIN_SIZE`` at 64 runs ``conv_transpose_ps3``
-    and agrees with the same layer built at the default gate (the direct
-    route), float32, TF32 off: the output within 2e-5 and the gradients by
-    the input and the kernel within 2e-4, relative to their largest
-    entries."""
-    from mmdgan_torch.models import ops
-    from mmdgan_torch.tools.conv_study import relative_error
-
-    design = {"op": "tc", "out": 32, "kernel": 4, "strides": 2, "padding": "SAME",
-              "w_nm": "s", "act_k": 1.5}
-    direct = ops.ParametricOp(design, (16, 64, 64), compute_dtype=torch.float32)
-    old, ops.TC_PS3_MIN_SIZE = ops.TC_PS3_MIN_SIZE, 64
-    try:
-        ps3 = ops.ParametricOp(design, (16, 64, 64), compute_dtype=torch.float32)
-    finally:
-        ops.TC_PS3_MIN_SIZE = old
-    assert ps3.tc_ps3 and not direct.tc_ps3
-    params, state = direct.init(torch.Generator().manual_seed(0))
-    params = {k: v.to(dev) for k, v in params.items()}
-    state = {k: v.to(dev) for k, v in state.items()}
-    rng = np.random.RandomState(17)
-    x = torch.tensor(rng.randn(BATCH, 16, 64, 64).astype(np.float32), device=dev)
-    ct = torch.tensor(rng.randn(BATCH, 32, 128, 128).astype(np.float32), device=dev)
-
-    def run(op):
-        xg = x.clone().requires_grad_(True)
-        kg = params["kernel"].clone().requires_grad_(True)
-        y, _ = op.apply({"kernel": kg}, state, xg)
-        return (y.detach(),) + torch.autograd.grad(y, (xg, kg), ct)
-
-    got, want = tf32_off(lambda: (run(ps3), run(direct)))
-    errs = [relative_error(g, w) for g, w in zip(got, want)]
-    assert errs[0] < 2e-5 and max(errs[1:]) < 2e-4, errs
-    log(f"[tc_study] a tc layer at 64x64 with TC_PS3_MIN_SIZE = 64 (ps3) against the direct "
-        f"route on the card, f32, TF32 off: output {errs[0]:.2e}, d/dx {errs[1]:.2e}, "
-        f"d/dkernel {errs[2]:.2e} relative")
-
-
-# phase 18: seeded maps (N, C, H, W) with odd rows, and the timed shapes
+# phase 17: seeded maps (N, C, H, W) with odd rows, and the timed shapes
 BIAS_ACT_SHAPES = [(3, 32, 17, 19), (2, 3, 64, 64), (2, 1024, 4, 4), (5, 24, 7, 9),
                    (3, 64, 33, 31), (128, 64, 32, 32)]   # the last: cifar10's dis/l1_f64
 BIAS_ACT_TIMED = (("hd512 dis/l1_f512", (128, 32, 512, 512)),
@@ -3897,7 +3724,7 @@ def _double_backward_pair(act: str, dev) -> tuple:
 
 
 def check_bias_act_values(dev) -> dict:
-    """Phase 18's checks: every 16-bit value, seeded maps, determinism, a
+    """Phase 17's checks: every 16-bit value, seeded maps, determinism, a
     graph. Returns the largest relative gap of the bias's gradient."""
     ulps, worst = {}, 0.0
     cl = dict(memory_format=torch.channels_last)
@@ -3979,7 +3806,7 @@ def _bias_grad_gap(gb, want_gb, gx) -> float:
 
 
 def time_bias_act(dev, card: str) -> list:
-    """Phase 18's timings at BIAS_ACT_TIMED, bf16, lrelu: device ms a
+    """Phase 17's timings at BIAS_ACT_TIMED, bf16, lrelu: device ms a
     launch (CUDA events around eager launches, each milliseconds long), its
     share of HBM_BYTES_PER_S, and the plain ops beside it; at each shape
     the kernels' output and activation gradient bitwise the plain ops',
@@ -4034,7 +3861,7 @@ def time_bias_act(dev, card: str) -> list:
 
 
 def run_bias_act(dev, card: str) -> list:
-    """Phase 18: the kernel pair's checks, then its timings; returns the
+    """Phase 17: the kernel pair's checks, then its timings; returns the
     kernels line's two entries (the launches of the main path's runs,
     which ``assert_counted`` reads, filled in at the end)."""
     checks = check_bias_act_values(dev)
@@ -4071,7 +3898,7 @@ def mesh_rank_main(argv: list) -> int:
     return 0
 
 
-PHASES = tuple(range(3, 19))
+PHASES = tuple(range(3, 18))
 
 
 def parse_phases(argv: list) -> set:
@@ -4141,9 +3968,8 @@ def main() -> int:
         return [sum(counted[i] for counted, _ in runs.values()) for i in range(2)]
 
     def families():
-        runs = [run_family(dev, name, arch, card)
-                for name, arch in (("stl10", stl_architecture()),
-                                   ("celeba", celeba_architecture()))]
+        runs = [run_family(dev, "stl10", stl_architecture(), card, timed=True),
+                run_family(dev, "celeba", celeba_architecture(), card, timed=False)]
         return [sum(r[i] for r in runs) for i in range(2)]
 
     def shapes():
@@ -4151,16 +3977,13 @@ def main() -> int:
         check_kernel_shapes(dev, kernels, TIMED_SHAPES, seed=20)
         return kernels
 
-    # phases 7 and 12b's datasets, each built once for its timed part and
-    # its checks
-    trainer_data = cache(lambda: trainer_dataset(dev))
+    # phase 12b's dataset, built once for its timed part and its checks
     same_class_data = cache(lambda: same_class_setup(dev))
 
     with tempfile.TemporaryDirectory() as tmp:
         # the parts that time things, alone on the card
         kernels = phase("3 kernels", shapes)
         phase("5 main", main_path, counted=True)
-        phase("7 trainer steps/s", lambda: trainer_rates(dev, *trainer_data()))
         phase("9 losses", lambda: run_losses(dev, card), counted=True)
         phase("10 families", families, counted=True)
         phase("10 hd512", lambda: run_hd512(dev, card), counted=True)
@@ -4170,7 +3993,7 @@ def main() -> int:
         phase("12 conditional", lambda: run_conditional(dev, card), counted=True)
         phase("12 same-class steps/s", lambda: same_class_rates(dev, card, same_class_data()))
         phase("13 mesh NCCL", lambda: run_mesh_nccl(card), counted=True)
-        phase("14 serving", lambda: run_serving(dev, card))
+        phase("14 serving images/s", lambda: serving_rates(dev, card))
         os.makedirs(os.path.join(tmp, "14"))
         phase("14 fsdp NCCL", lambda: run_fsdp_nccl(card, os.path.join(tmp, "14")),
               counted=True)
@@ -4180,11 +4003,7 @@ def main() -> int:
         phase("16 scaling", lambda: run_scaling_study(dev, card), counted=True)
         pb = os.path.join(tmp, "fake_inception_v1.pb")
         phase("16 fake inception", lambda: write_fake_inception(pb))
-        phase("17 kernel study", lambda: run_kernel_study(dev, card), counted=True)
-        phase("17 conv and tc studies", lambda: run_conv_studies(dev, card))
-        phase("17 hbm study", lambda: run_hbm_study(dev, card))
-        phase("17 export study", lambda: run_export_study(dev, card))
-        fused = phase("18 bias_act", lambda: run_bias_act(dev, card))
+        fused = phase("17 bias_act", lambda: run_bias_act(dev, card))
 
         # the checks, which time nothing, in this process beside the phases'
         # subprocesses that time nothing either
@@ -4209,7 +4028,7 @@ def main() -> int:
             phase("4 reference",
                   lambda: [check_against_cpu(dev, loss) for loss in CPU_CHECK_LOSSES])
             phase("6 determinism", lambda: check_determinism(dev))
-            phase("7 trainer checks", lambda: check_trainer(dev, *trainer_data()))
+            phase("7 trainer checks", lambda: check_trainer(dev, *trainer_dataset(dev)))
             phase("9 rep_gp determinism", lambda: check_penalty_determinism(dev))
             phase("10 accumulation checks", lambda: [
                 check_against_cpu(dev, loss, micro=ACCUM_M) for loss in ("rep", "rmb_gp")]
@@ -4218,9 +4037,9 @@ def main() -> int:
             phase("11 optimizer windows", lambda: check_optimizer_windows(dev))
             phase("12 same-class checks", lambda: check_same_class_data(dev, same_class_data()))
             phase("12 card vs CPU", lambda: check_catalogue_on_card(dev))
+            phase("14 serving checks", lambda: run_serving(dev, card))
             phase("16 imagenet prep", lambda: check_imagenet_prep(dev, card, tmp, pb))
             phase("16 parity_run", lambda: check_parity_run(dev, card))
-            phase("17 tc gate on the card", lambda: check_tc_gate_on_card(dev))
         finally:
             errors = []
             for name, finish in pending:

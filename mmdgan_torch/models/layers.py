@@ -232,7 +232,7 @@ class Layer:
             shape = self._add_bn(shape, "BN")
         bias = self.ops.get("bias")
         if (len(shape) == 3 and bias is not None and bias.design["op"] == "bias"
-                and not self._has_bn() and self._act_name() in cuda_bias_act.ACTS):
+                and not self._has_bn() and self._act_name() in FUSABLE_ACTS):
             self.fused_act = self._act_name()
         shape = activation_shape(shape, self._act_name())
         if self._scale_dir() < 0:

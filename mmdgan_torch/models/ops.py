@@ -61,7 +61,8 @@ import torch.nn.functional as F
 
 from mmdgan_torch.models.initializers import bias_initializer, weight_initializer
 from mmdgan_torch.models.scaling import avg_pool, max_pool
-from mmdgan_torch.ops.conv import Geometry, conv_transpose_ps3
+from mmdgan_torch.ops import cuda_bias_act
+from mmdgan_torch.ops.conv import Geometry
 from mmdgan_torch.parallel.collectives import all_reduce
 from mmdgan_torch.ops.spectral_norm import (
     EPSI,
@@ -72,16 +73,6 @@ from mmdgan_torch.ops.spectral_norm import (
     spectral_norm_pim_init,
 )
 from mmdgan_torch.utils import spans
-
-# The transposed conv's lowering (``mmdgan_tpu/models/ops.py:50-63``): a
-# ``tc``/``tcck`` k=4/s2/SAME whose input is at least this tall runs as
-# ``ops/conv.py`` ``conv_transpose_ps3`` (one 3x3/s1 conv to 4*Cout
-# channels, then depth-to-space) instead of one ``F.conv_transpose2d``.
-# JAX measured the direct route faster end to end on the TPU, hence inf.
-# Read when an op is built and kept on it (``ParametricOp.tc_ps3``), so a
-# captured graph and its replays take one route: set it before building a
-# model to re-judge it (``tools/tc_study.py --e2e``).
-TC_PS3_MIN_SIZE = float("inf")
 
 # tf.layers.batch_normalization defaults (layer_func.py:960-966)
 BN_MOMENTUM = 0.99
@@ -176,15 +167,16 @@ def per_channel(v: torch.Tensor, x: torch.Tensor, compute_dtype: torch.dtype) ->
     return v.view((-1,) + (1,) * (x.dim() - 2))
 
 
-# the activations a block's bias, cast and activation may fuse with
-# (``ops/cuda_bias_act.py`` ``ACTS``); ``models/layers.py`` ``ACTIVATIONS``
-# holds them with the rest
+# the activations a block's bias, cast and activation may fuse with, the
+# kernel's (``ops/cuda_bias_act.py`` ``ACTS``); ``models/layers.py``
+# ``ACTIVATIONS`` holds them with the rest
 FUSABLE_ACTS = {
     "linear": lambda x: x,
     "relu": F.relu,
     "lrelu": lambda x: F.leaky_relu(x, negative_slope=0.1),
     "tanh": torch.tanh,
 }
+assert tuple(FUSABLE_ACTS) == cuda_bias_act.ACTS, (tuple(FUSABLE_ACTS), cuda_bias_act.ACTS)
 
 
 def bias_act_plain(x: torch.Tensor, bias: torch.Tensor, act: str) -> torch.Tensor:
@@ -268,11 +260,6 @@ class ParametricOp:
         self.geometry: Optional[Geometry] = None
         self._infer_shapes()
         self._setup_spectral_norm()
-        d = self.design
-        self.tc_ps3 = (d["op"] in ("tc", "tcck") and d["kernel"] == 4 and d["strides"] == 2
-                       and d.get("dilation", 1) == 1
-                       and str(d.get("padding", "SAME")).upper() == "SAME"
-                       and self.input_shape[1] >= TC_PS3_MIN_SIZE)
 
     # static shape inference (layer_func.py:566-685) ----------------------
     def _infer_shapes(self):
@@ -454,8 +441,6 @@ class ParametricOp:
             y = F.conv2d(xp, cast(w), stride=geo.strides, dilation=geo.dilation,
                          padding=(lh, lw) if geo.symmetric else 0, groups=self.input_shape[0])
             return F.conv2d(y, cast(pointwise))
-        if self.tc_ps3:
-            return conv_transpose_ps3(x, cast(w))
         return geo.forward(x, cast(w))
 
     def apply(self, params: Dict, state: Dict, x: torch.Tensor, train: bool = True,

@@ -11,13 +11,15 @@ cuDNN and cuBLAS, within 2e-5 relative of ``direct``, in NCHW and in
 forward+backward at bf16, batch 64, in both layouts:
 
 - ``direct``: ``ops/conv.py`` ``Geometry.forward``, what ``models/ops.py``
-  runs below ``TC_PS3_MIN_SIZE`` (one ``F.conv_transpose2d``);
+  runs for every ``tc`` (one ``F.conv_transpose2d``);
 - ``ps2``: four 2x2/s1 phase convs and an interleave;
-- ``ps3``: ``ops/conv.py`` ``ps3_conv``, one 3x3/s1 conv to 4*Cout
-  channels (16 of its 36 taps per phase useful) and depth-to-space, the
-  lowering ``models/ops.py`` runs at and above ``TC_PS3_MIN_SIZE``; timed
-  on its kernel ``ps3_kernel(w)`` made once, as JAX's study times it
-  (the gate runs ``conv_transpose_ps3``, the kernel's making included);
+- ``ps3``: ``ps3_conv``, one 3x3/s1 conv to 4*Cout channels (16 of its 36
+  taps per phase useful) and depth-to-space, the lowering that the JAX
+  package's size gate selects (``mmdgan_tpu/models/ops.py:50-63,383-414``;
+  it lost to the direct route on the TPU and on the H100, and no model of
+  the port runs it); timed on its kernel ``ps3_kernel(w)`` made once, as
+  JAX's study times it (the gate runs ``conv_transpose_ps3``, the kernel's
+  making included);
 - ``grad``: the transposed conv as the VJP of the matching 4x4/s2 conv
   (``autograd.grad`` of ``F.conv2d`` by its input).
 
@@ -25,31 +27,21 @@ Readings as ``tools/conv_study.py`` takes them: ``INNER`` calls in one
 captured CUDA graph (25 at 128x128 and up, as JAX's), ``REPEAT`` timed
 replays, the median.
 
-``--e2e`` adds the end-to-end A/B that set JAX's default
-(``mmdgan_tpu/models/ops.py:50-63``): hd128, hd256 and hd512 at full
-width, rep b64 bf16, ``build_device_data_step`` (M=1) over a seeded
-256-row uint8 dataset on the card, graphed K=16 windows, with
-``TC_PS3_MIN_SIZE`` at inf and at 64 in turns (inf, 64, 64, inf; the
-gate is read when a model is built, so each reading builds its own). It
-reports what the card says; the port's default stays inf.
-
-    python -m mmdgan_torch.tools.tc_study [--shapes g4,g8] [--e2e] [--device cuda]
+    python -m mmdgan_torch.tools.tc_study [--shapes g4,g8] [--device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
-import gc
 import sys
-import time
-from typing import Dict, List
+from typing import Dict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mmdgan_torch import resolve_device
-from mmdgan_torch.ops.conv import Geometry, conv_transpose_ps3, ps3_conv, ps3_kernel
+from mmdgan_torch.ops.conv import Geometry
 from mmdgan_torch.tools.conv_study import (LAYOUTS, gate, select, table_rows, time_variants,
                                            to_layout)
 
@@ -76,9 +68,6 @@ SHAPES = [
     ("g7 128x128 32->32 (hd512)", 128, 32, 32),
     ("g8 256x256 32->3 (hd512)", 256, 32, 3),
 ]
-E2E_ARCHS = (128, 256, 512)
-E2E_GATES = (float("inf"), 64, 64, float("inf"))
-E2E_ROWS, E2E_K, E2E_STEPS = 256, 16, 64
 
 
 def direct(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -90,13 +79,53 @@ def ps2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Four 2x2/s1 phase convs and an interleave. Phase p = 0 reads rows
     {i - 1, i} (pad (1, 0)), p = 1 rows {i, i + 1} (pad (0, 1)), through
     JAX's taps ``W[2a + p, 2b + q]``, the flipped kernel's even or odd
-    rows and columns (``ops/conv.py`` ``ps3_kernel``)."""
+    rows and columns (``ps3_kernel``)."""
     n, _, h, wd = x.shape
     wf = w.flip(2, 3)
     outs = {(p, q): F.conv2d(F.pad(x, (1 - q, q, 1 - p, p)), wf[:, :, p::2, q::2].transpose(0, 1))
             for p in (0, 1) for q in (0, 1)}
     rows = [torch.stack([outs[(p, 0)], outs[(p, 1)]], dim=-1) for p in (0, 1)]
     return torch.stack(rows, dim=3).reshape(n, w.shape[1], 2 * h, 2 * wd)
+
+
+def ps3_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The 3x3 kernel ``[4 * Cout, Cin, 3, 3]`` of ``conv_transpose_ps3``
+    from a ``tc`` kernel ``[Cin, Cout, 4, 4]`` (k=4, s=2, SAME).
+
+    Output phase (p, q) (row 2i + p, column 2j + q) reads input rows
+    i - 1 + p + a and columns j - 1 + q + b, a, b in {0, 1}, through tap
+    ``w[:, :, 3 - 2a - p, 3 - 2b - q]``: torch's transposed conv flips the
+    kernel that ``lax.conv_transpose`` does not, so the flipped kernel
+    ``wf`` holds JAX's taps ``W[2a + p, 2b + q]`` at ``wf[..., 2a + p, 2b +
+    q]``. Its even or odd rows and columns, padded to 3x3 at offset (p, q),
+    are phase (p, q)'s block of Cout output channels, blocks in (p, q)
+    order."""
+    cin, cout = w.shape[:2]
+    wf = w.flip(2, 3)
+    blocks = [F.pad(wf[:, :, p::2, q::2], (q, 1 - q, p, 1 - p)) for p in (0, 1) for q in (0, 1)]
+    return torch.stack(blocks).transpose(1, 2).reshape(4 * cout, cin, 3, 3)
+
+
+def ps3_conv(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """The 3x3/s1 conv (pad 1) to the four phases' channels, then
+    depth-to-space: channel (p, q, c) at (i, j) goes to (c, 2i + p, 2j + q).
+    The result keeps the conv's memory layout (one copy either way)."""
+    n, _, h, wd = x.shape
+    cout = w3.shape[0] // 4
+    z = F.conv2d(x, w3, padding=1)
+    if z.is_contiguous(memory_format=torch.channels_last):
+        # NHWC memory (n, i, j, p, q, c) to (n, i, p, j, q, c)
+        z = z.permute(0, 2, 3, 1).reshape(n, h, wd, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
+        return z.reshape(n, 2 * h, 2 * wd, cout).permute(0, 3, 1, 2)
+    z = z.reshape(n, 2, 2, cout, h, wd)
+    return z.permute(0, 3, 4, 1, 5, 2).reshape(n, cout, 2 * h, 2 * wd)
+
+
+def conv_transpose_ps3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``tc`` k=4/s2/SAME of ``x`` [N, Cin, H, W] by ``w`` [Cin, Cout, 4, 4]
+    as one 3x3 conv and a depth-to-space: equal to the direct route up to
+    summation order, forward and both gradients."""
+    return ps3_conv(x, ps3_kernel(w))
 
 
 def grad_form(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -157,70 +186,6 @@ def study_shape(shape: tuple, device, batch: int = B, inner: int = None,
     return time_shape(shape, x, w, inner, repeat)
 
 
-def e2e_reading(size: int, gate_size: float, device, steps: int = E2E_STEPS,
-                batch: int = B) -> float:
-    """Steps/s of hd``size`` (rep, bf16, M=1) through
-    ``build_device_data_step`` over E2E_ROWS seeded uint8 rows on the
-    device, with ``TC_PS3_MIN_SIZE`` at ``gate_size`` while the model is
-    built: two untimed windows (the eager warm-up and the capture), then
-    ``steps // K`` timed ones, fenced by a synchronize."""
-    from mmdgan_torch.architectures import hd_architecture
-    from mmdgan_torch.models import ops
-    from mmdgan_torch.models.sngan import SNGan
-    from mmdgan_torch.train.optim import multi_opt_config
-    from mmdgan_torch.train.step import build_device_data_step, init_train_state
-
-    old = ops.TC_PS3_MIN_SIZE
-    ops.TC_PS3_MIN_SIZE = gate_size
-    try:
-        model = SNGan(hd_architecture(size), loss_type="rep", device=device)
-    finally:
-        ops.TC_PS3_MIN_SIZE = old
-    opt_d, opt_g = multi_opt_config([5e-4, 2e-4])
-    ts = init_train_state(model, 0, opt_d, opt_g, device=device)
-    fn = build_device_data_step(model, opt_d, opt_g, E2E_K, batch, device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    data = torch.randint(0, 256, (E2E_ROWS, size, size, 3), generator=gen, device=device,
-                         dtype=torch.uint8)
-    rng = torch.Generator(device=device).manual_seed(1)
-
-    def fence(m):
-        if m["loss_gen"].is_cuda:
-            torch.cuda.synchronize(m["loss_gen"].device)
-        return float(m["loss_gen"][-1])
-
-    for _ in range(2):
-        ts, m = fn(ts, data, None, rng)
-    fence(m)
-    n_calls = max(steps // E2E_K, 1)
-    start = time.perf_counter()
-    for _ in range(n_calls):
-        ts, m = fn(ts, data, None, rng)
-    if not np.isfinite(fence(m)):
-        raise RuntimeError(f"hd{size} at gate {gate_size}: loss_gen is not finite")
-    sps = n_calls * E2E_K / (time.perf_counter() - start)
-    del ts, fn, data, model
-    gc.collect()
-    if torch.device(device).type == "cuda":
-        torch.cuda.empty_cache()
-    return sps
-
-
-def e2e(device, sizes=E2E_ARCHS, steps: int = E2E_STEPS,
-        batch: int = B) -> Dict[int, Dict[float, List[float]]]:
-    """{size: {gate: [steps/s readings]}}, the gates read in E2E_GATES'
-    order (in turns)."""
-    out = {}
-    for size in sizes:
-        out[size] = {}
-        for g in E2E_GATES:
-            sps = e2e_reading(size, g, device, steps, batch)
-            out[size].setdefault(g, []).append(sps)
-            print(f"[tc_study e2e] hd{size} TC_PS3_MIN_SIZE={g}: {sps:.3f} steps/s",
-                  file=sys.stderr, flush=True)
-    return out
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--shapes", default="", help="name prefixes, comma-separated (default all)")
@@ -228,9 +193,6 @@ def main(argv=None) -> int:
     p.add_argument("--inner", type=int, default=None,
                    help=f"calls per graph (default {INNER}, {INNER_LARGE} at 128x128 and up)")
     p.add_argument("--repeat", type=int, default=REPEAT)
-    p.add_argument("--e2e", action="store_true", help="also the hd128/256/512 gate A/B")
-    p.add_argument("--e2e-steps", type=int, default=E2E_STEPS)
-    p.add_argument("--e2e-sizes", default=",".join(map(str, E2E_ARCHS)))
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
@@ -247,16 +209,6 @@ def main(argv=None) -> int:
         if vname != "direct":
             print(f"{name:28s} {layout:13s} {vname:6s} fwd x{v['fwd_speedup']:.3f}  "
                   f"fwd+bwd x{v['fwdbwd_speedup']:.3f}")
-    if args.e2e:
-        res = e2e(dev, [int(s) for s in args.e2e_sizes.split(",")], steps=args.e2e_steps,
-                  batch=args.batch)
-        print("\n# e2e: graphed K=16 windows, rep b64 bf16, TC_PS3_MIN_SIZE inf vs 64 in turns\n")
-        print("| arch | inf steps/s | 64 steps/s | 64 vs inf |\n|---|---|---|---|")
-        for size, by_gate in res.items():
-            base, ps3 = by_gate[float("inf")], by_gate[64]
-            print(f"| hd{size} | {', '.join(f'{v:.3f}' for v in base)} | "
-                  f"{', '.join(f'{v:.3f}' for v in ps3)} | "
-                  f"{100 * (np.mean(ps3) / np.mean(base) - 1):+.2f}% |", flush=True)
     return 0
 
 

@@ -431,7 +431,7 @@ def test_pipeline_resize_matches_jax(tmp_path):
 def test_tc_valid_strided_follows_lax():
     """A stride-2 VALID transposed conv: the port declares and computes
     ``lax.conv_transpose``'s output (10x10 from 4x4 at kernel 4), where
-    the JAX layer declares 11x11 and raises (ROADMAP C4)."""
+    the JAX layer declares 11x11 and raises (ROADMAP C5)."""
     design = {"op": "tc", "out": 3, "kernel": 4, "strides": 2, "dilation": 1, "padding": "VALID"}
     op = ParametricOp(design, (2, 4, 4), compute_dtype=torch.float32)
     assert op.output_shape == (3, 10, 10)
@@ -477,7 +477,7 @@ def test_strided_dilated_conv_sn_is_the_layers_operator_norm(c_in, c_out):
     """Spectral norm of a conv with stride 2 and dilation 2: the power
     iteration runs on the layer's own operator, so from the top singular
     vector of that map's explicit matrix (on the side the vector lives
-    on) it returns the top singular value (ROADMAP C5: JAX drops the
+    on) it returns the top singular value (ROADMAP C6: JAX drops the
     stride there)."""
     design = {"op": "c", "out": c_out, "kernel": 3, "strides": 2, "dilation": 2,
               "padding": "SAME", "w_nm": "s"}

@@ -88,8 +88,6 @@ LAYERS = {
              "kernel": [4, 3, 4], "strides": [2, 1, 2], **_sn()}, (3, 4, 4), 0),
     "nl": ({"name": "nl", "type": "nl_pool", "op": "c", "out": [2, 2, 8], "kernel": [1, 1, 1],
             "act": "linear", "act_nm": "bn", **_sn()}, (8, 4, 4), 0),
-    "ps3": ({"name": "t", "op": "tc", "out": 4, "kernel": 4, "strides": 2, **_sn()},
-            (6, 4, 4), 0),
 }
 
 
@@ -121,8 +119,6 @@ def run_layer(case, nhwc, monkeypatch):
     design, ish, num_class = LAYERS[case]
     if nhwc:
         route_on(monkeypatch)
-    if case == "ps3":
-        monkeypatch.setattr(ops, "TC_PS3_MIN_SIZE", 0)
     layer = Layer(design, ish, name_prefix="t/", num_class=num_class,
                   compute_dtype=torch.bfloat16)
     p, s = layer.init(torch.Generator().manual_seed(0))
@@ -147,7 +143,6 @@ def run_layer(case, nhwc, monkeypatch):
 def test_route_keeps_layer_results(case, monkeypatch):
     layer, want, want_grads, off = run_layer(case, False, monkeypatch)
     _, got, grads, on = run_layer(case, True, monkeypatch)
-    assert case != "ps3" or layer.ops["kernel"].tc_ps3
     convs = sum(isinstance(op, ops.ParametricOp) and op.geometry is not None
                 and op.design["op"] not in ("max", "avg", "sum") for op in layer.ops.values())
     fused = {} if layer.fused_act is None else {"fuse.bias_act": 1}

@@ -8,6 +8,17 @@ export_study}.py``), on the CPU at small sizes.
   against the JAX tool's own function of the same name on the same
   seeded numpy inputs (float32; the studies' gates: 1e-5 relative for the
   convs, 2e-5 for the transposed convs).
+- The tc study's ps3 lowering and the direct route that every model runs
+  (``Geometry.forward``) against the JAX package's
+  ``ParametricOp._conv_t_ps3`` at 64x64 in float64 on both sides
+  (``jax.enable_x64``), forward and the (x, w) VJP, within JAX's own
+  tolerances for the lowering (``tests/test_network.py:245-275``): 2e-5
+  and 2e-4. The kernel crosses over through the bridge's ``tc`` mapping
+  and its gradient back through the inverse map. In float32 the CPU's
+  convolutions round the kernel gradient's 32,768 products by up to
+  1.2e-3 (torch, either route) and 1.3e-3 (JAX's direct route), so there
+  the tolerance would measure float32 accumulation, not the taps and the
+  channel order.
 - The kernel study's scalar and its gradient, on the plain path, against
   JAX's ``_means_reference`` (rtol 1e-5 / atol 1e-6; the gradient rtol
   1e-4 / atol 1e-7).
@@ -31,9 +42,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from mmdgan_tpu.models import ops as jax_ops
 from mmdgan_tpu.ops.pallas_mmd import _means_reference
 from mmdgan_torch.models.sngan import SNGan
+from mmdgan_torch.ops.conv import Geometry
 from mmdgan_torch.tools import conv_study, export_study, hbm_study, kernel_study, tc_study
 from mmdgan_torch.train import step as step_module
 from mmdgan_torch.train.optim import multi_opt_config
@@ -132,6 +146,43 @@ def test_tc_variants_exact_against_direct_and_jax(h, cin, cout, layout):
                                rtol=1e-5, atol=1e-5)
     tc_study.gate(tc_study.GATED, (xt, wt), tc_study.GATE, "small")
 
+
+def _hwio_grad(g: torch.Tensor) -> np.ndarray:
+    """The gradient of a port ``tc`` kernel as the gradient of JAX's HWIO
+    kernel: the bridge's map is a permutation, so its inverse."""
+    return g.detach().flip(2, 3).permute(2, 3, 0, 1).numpy()
+
+
+@pytest.mark.parametrize("h,cin,cout", [(64, 64, 32), (64, 8, 3)])
+def test_ps3_matches_jax_and_the_direct_route(h, cin, cout):
+    fwd_tol, vjp_tol = dict(rtol=2e-5, atol=2e-5), dict(rtol=2e-4, atol=2e-4)
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, h, h, cin)
+    w = rng.randn(4, 4, cin, cout) * 0.1
+    ct = rng.randn(2, 2 * h, 2 * h, cout)
+
+    with jax.enable_x64(True):
+        want, vjp = jax.vjp(jax_ops.ParametricOp._conv_t_ps3, jnp.asarray(x), jnp.asarray(w))
+        gx_want, gw_want = vjp(jnp.asarray(ct))
+        assert want.dtype == gw_want.dtype == jnp.float64
+
+    xt = torch.tensor(x).permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+    wt = torch.tensor(np.ascontiguousarray(bridge_tc_kernel(w))).requires_grad_(True)
+    ctt = torch.tensor(ct).permute(0, 3, 1, 2)
+    geo = Geometry.make("tc", (h, h), 4, 2, 1, "SAME")
+    for route in (tc_study.conv_transpose_ps3, geo.forward):
+        got = route(xt, wt)
+        assert got.shape == (2, cout, 2 * h, 2 * h)
+        np.testing.assert_allclose(got.detach().permute(0, 2, 3, 1).numpy(), np.asarray(want),
+                                   **fwd_tol, err_msg=route.__name__)
+        gx, gw = torch.autograd.grad(got, (xt, wt), ctt)
+        np.testing.assert_allclose(gx.permute(0, 2, 3, 1).numpy(), np.asarray(gx_want),
+                                   **vjp_tol)
+        np.testing.assert_allclose(_hwio_grad(gw), np.asarray(gw_want), **vjp_tol)
+    # and against torch's own transposed conv, which the direct route is
+    direct = F.conv_transpose2d(xt, wt, stride=2, padding=1)
+    np.testing.assert_allclose(tc_study.conv_transpose_ps3(xt, wt).detach().numpy(),
+                               direct.detach().numpy(), **fwd_tol)
 
 def test_a_variant_that_misses_its_gate_raises():
     x, w = torch.randn(2, 4, 8, 8), torch.randn(6, 4, 4, 4)
